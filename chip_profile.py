@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Where the port's serve path spends its time on one card.
+
+    python3 chip_profile.py
+
+Builds qwen2.5-3b at full width (random weights from a seed), one
+Replica (32 slots, 2048 positions, 256-token prefill chunks) holding 16
+sessions of 128-1024 prompt tokens, then traces with ``torch.profiler``:
+5 fused decode rounds (a bucket of 16), then 3 prefill chunks of one
+more admit.  Prints one JSON line per window: host wall time, device busy
+time (the union of the kernels' intervals), the idle share, and the
+ops with the most device time.  Needs a CUDA card; imports no jax.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+TOP = 12
+
+
+def _busy_ms(events) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type.name == "CUDA")
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / 1e3
+
+
+def _window(label: str, fn, steps: int) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = _busy_ms(prof.events())
+    rows = sorted(prof.key_averages(), key=lambda r: -r.self_device_time_total)
+    top = [{"op": r.key, "calls": r.count,
+            "device_ms": r.self_device_time_total / 1e3 / steps}
+           for r in rows[:TOP] if r.self_device_time_total > 0]
+    print(json.dumps({"window": label, "steps": steps,
+                      "wall_ms_per_step": wall / steps,
+                      "device_busy_ms_per_step": busy / steps,
+                      "idle_share": 1.0 - busy / wall,
+                      "top_device_ops": top}), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.backend import nvidia_smi_line
+    from repro_torch.models import Model
+    from repro_torch.runtime import Membership
+    from repro_torch.serve import Replica, Request
+
+    dev = torch.device("cuda", 0)
+    print(nvidia_smi_line(), flush=True)
+    cfg = get_config("qwen2.5-3b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+    for i in range(4):
+        mem.request_join(f"10.2.0.{i}", 9000)
+    rep = Replica(model, slots=32, max_len=2048, prefill_chunk=256, device=dev)
+    rep.attach_params(params)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate(rng.integers(128, 1025, size=16)):
+        rep.admit(Request(f"user-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                    dtype=np.int32)))
+    route = mem.ring_state.device_bucket_table()
+    for _ in range(2):                   # warm-up: allocator, cuBLAS plans
+        rep.decode_round(route=route)
+    _window("fused_decode_round_b16", lambda: rep.decode_round(route=route), 5)
+    rep.begin_admit(Request("late", rng.integers(0, cfg.vocab, 1024,
+                                                 dtype=np.int32)))
+    rep.advance_prefills()               # warm-up chunk
+    _window("prefill_chunk_256", rep.advance_prefills, 3)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` into the
+gitignored ``build/`` and runs, in order, printing one JSON line each:
+
+  device   nvidia-smi's name and power limit, torch/CUDA versions, the
+           kernel build time and ptxas' register report;
+  kernels  K1 (ring_lookup64), K2 (ring_lookup_bucketed) and K3
+           (decode_attention) at the main path's shapes, each held
+           against its plain PyTorch version on the same inputs (K1/K2
+           exactly, K3 within BF16_ATOL), with kernel, plain, library
+           and bound times;
+  route    a 10^6-peer RingState: owners of both lookup paths against a
+           numpy bisect, a delta bucket upload after one EDRA batch of
+           64 events, no upload across 100 unchanged lookups;
+  serve    qwen2.5-3b at full width (random weights from a seed): four
+           Membership nodes, one Replica each (32 slots, 2048 positions,
+           256-token prefill chunks), 32 routed requests of 128-1024
+           prompt tokens, 32 fused route+decode rounds, then the same
+           schedule unfused.  Fused and unfused tokens must be equal,
+           every routed owner must be the router's, and the kernels'
+           launch counters (zeroed just before) must show the path ran
+           through K1, K2 and K3 (K3: 36 launches per replica round).
+
+Then the kernel summary line, and last ``{"ok": true, "device": ...}``.
+Any failed check raises, so the exit code is not 0.  Without a CUDA
+card, or without the package beside it, it exits 1 and prints no result.
+Imports nothing of jax or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # f32 outside the tensor cores
+BF16_ATOL = 1.6e-2                 # 2 bf16 ulps at |out| < 2 (one rounding
+                                   # each in kernel and plain version)
+SEED = 0
+N_PEERS = 1_000_000
+CAPACITY = 1 << 20                 # device table of 10^6 peers
+BUCKETS = 1 << 15                  # their directory under a 32 MiB budget
+N_KEYS = 1 << 20
+K3_SHAPES = [(1, 2048), (8, 2048), (16, 2048), (32, 2048), (32, 2000)]   # (B, S)
+K3_MAIN = (16, 2048)               # the largest decode bucket on the path
+H, HKV, HD = 16, 2, 128            # qwen2.5-3b attention
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls
+    (CUDA events, after a warm-up)."""
+    import torch
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(nbytes: float, nops: float, peak: float):
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, nops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.edra import Event
+    from repro_torch.core.ringstate import RingState
+    from repro_torch.kernels import backend, build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    from repro_torch.kernels.ring_lookup.ref import (ring_lookup64_ref,
+                                                     ring_lookup_bucketed_ref,
+                                                     sortable_ids)
+    from repro_torch.models import Model
+    from repro_torch.runtime import Membership
+    from repro_torch.serve import Replica, Request, SessionRouter
+
+    dev = _device()
+    torch.cuda.set_device(dev)
+    backend.strict_fp32()              # TF32 off: f32 products stay f32
+    name = torch.cuda.get_device_name(0)
+
+    # -- device --------------------------------------------------------------
+    prov = backend.provenance(dev)
+    if not prov["nvidia_smi"]:
+        raise RuntimeError("nvidia-smi gave no name/power limit")
+    print(prov["nvidia_smi"], flush=True)
+    build.library()
+    ptxas = [ln.strip() for ln in build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit({"phase": "device", **prov, "build_seconds": build.build_seconds,
+          "ptxas": ptxas})
+
+    # -- kernels -------------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    ids = np.unique(rng.integers(0, 2**64, size=N_PEERS + 4096,
+                                 dtype=np.uint64))
+    ids = ids[rng.permutation(ids.size)[:N_PEERS]]
+    state = RingState(ids, device=dev)
+    act = state.active_ids()
+    one = np.uint64(1)
+    special = np.concatenate([act[:50_000], act[::20] + one,
+                              np.array([act[-1] + one, 2**64 - 1, 0],
+                                       np.uint64)])
+    keys = np.concatenate([special, rng.integers(
+        0, 2**64, size=N_KEYS - special.size, dtype=np.uint64)])
+    want_owner = act[np.searchsorted(act, keys) % act.size]
+    w = np.uint64(32)
+    khi = torch.from_numpy((keys >> w).astype(np.uint32).view(np.int32)).to(dev)
+    klo = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32).view(np.int32)).to(dev)
+    results = {}
+
+    thi, tlo, n_live = state.device_table()
+    if thi.numel() != CAPACITY:
+        raise AssertionError(f"device table capacity {thi.numel()}")
+    got1 = rl_ops.ring_lookup64(khi, klo, thi, tlo, n_live)
+    torch.cuda.synchronize()
+    plain1 = ring_lookup64_ref(khi, klo, thi, tlo, n_live)
+    err1 = int((got1.long() - plain1.long()).abs().max())
+    if err1 or not np.array_equal(act[got1.cpu().numpy()], want_owner):
+        raise AssertionError("K1 disagrees with its plain version / bisect")
+    table64 = sortable_ids(thi[:N_PEERS], tlo[:N_PEERS])
+    keys64 = sortable_ids(khi, klo)
+    b1, by1 = bound(N_KEYS * 12 + N_PEERS * 8 + 4,
+                    N_KEYS * (math.ceil(math.log2(N_PEERS)) + 1) * 3, FP32_FLOPS)
+    results["K1"] = {
+        "name": "ring_lookup64", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_lookup.cu",
+        "replaces": "src/repro/kernels/ring_lookup/kernel.py:123",
+        "shape": f"Q={N_KEYS}, n={N_PEERS}, capacity={thi.numel()}",
+        "max_abs_err": err1, "tolerance": 0,
+        "ms": cuda_ms(lambda i: rl_ops.ring_lookup64(khi, klo, thi, tlo, n_live)),
+        "plain_ms": cuda_ms(lambda i: ring_lookup64_ref(khi, klo, thi, tlo,
+                                                        n_live)),
+        "library_ms": cuda_ms(lambda i: torch.searchsorted(table64, keys64)),
+        "bound_ms": b1, "bound_by": by1}
+
+    table = state.device_bucket_table()
+    stats = state.bucket_stats()
+    if not stats["valid"] or stats["buckets"] != BUCKETS:
+        raise AssertionError(f"10^6 peers left the bucketed path: {stats}")
+    got2 = rl_ops.ring_lookup_bucketed(khi, klo, *table)
+    torch.cuda.synchronize()
+    plain2 = ring_lookup_bucketed_ref(khi, klo, *table)
+    err2 = max(int((got2[i].long() - plain2[i].long()).abs().max())
+               for i in range(2))
+    words = torch.stack(got2).cpu().numpy().view(np.uint32).astype(np.uint64)
+    if err2 or not np.array_equal((words[0] << w) | words[1], want_owner):
+        raise AssertionError("K2 disagrees with its plain version / bisect")
+    rows = np.unique(keys >> np.uint64(64 - BUCKETS.bit_length() + 1)).size
+    b2, by2 = bound(N_KEYS * 16 + rows * (128 * 8 + 4),
+                    N_KEYS * 128 * 3, FP32_FLOPS)
+    act64 = sortable_ids(*(torch.from_numpy(
+        a.astype(np.uint32).view(np.int32)).to(dev)
+        for a in (act >> w, act & np.uint64(0xFFFFFFFF))))
+    act_hi, act_lo = thi[:N_PEERS], tlo[:N_PEERS]
+
+    def library2(i):
+        at = torch.searchsorted(act64, keys64) % N_PEERS
+        return act_hi[at], act_lo[at]
+
+    results["K2"] = {
+        "name": "ring_lookup_bucketed", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_lookup.cu",
+        "replaces": "src/repro/kernels/ring_lookup/kernel.py:217",
+        "shape": f"Q={N_KEYS}, buckets={stats['buckets']}x128, "
+                 f"rows touched={rows}",
+        "max_abs_err": err2, "tolerance": 0,
+        "ms": cuda_ms(lambda i: rl_ops.ring_lookup_bucketed(khi, klo, *table)),
+        "plain_ms": cuda_ms(lambda i: ring_lookup_bucketed_ref(khi, klo,
+                                                               *table)),
+        "library_ms": cuda_ms(library2),
+        "bound_ms": b2, "bound_by": by2}
+
+    k3_rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b, s in K3_SHAPES:
+        per = 2 * b * s * HKV * HD * 2            # K and V bytes in bf16
+        copies = max(1, math.ceil(128e6 / per))   # cycle past the 50 MB L2
+        q = torch.randn((copies, b, H, HD), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn((copies, b, s, HKV, HD), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn((copies, b, s, HKV, HD), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        length = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        got3 = da_ops.decode_attention(q[0], k[0], v[0], length)
+        torch.cuda.synchronize()
+        plain3 = decode_attention_ref(q[0], k[0], v[0], length)
+        err3 = float((got3.float() - plain3.float()).abs().max())
+        if not err3 <= BF16_ATOL:
+            raise AssertionError(f"K3 at B={b}, S={s}: max err {err3}")
+        # the yardstick: SDPA with GQA and a length mask, on (B,Hkv,S,hd)
+        # copies of the cache made outside the timed calls
+        kt, vt = k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous()
+        mask = (torch.arange(s, device=dev)[None, :] < length[:, None])[
+            :, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        valid = int(length.sum())
+        bb, by3 = bound(valid * HKV * HD * 2 * 2 + 2 * b * H * HD * 2 + 4 * b,
+                        4 * valid * H * HD, BF16_FLOPS)
+        k3_rows.append({
+            "B": b, "S": s, "max_abs_err": err3,
+            "ms": cuda_ms(lambda i: da_ops.decode_attention(
+                q[i % copies], k[i % copies], v[i % copies], length)),
+            "plain_ms": cuda_ms(lambda i: decode_attention_ref(
+                q[i % copies], k[i % copies], v[i % copies], length)),
+            "library_ms": cuda_ms(lambda i: sdpa(
+                q[i % copies][:, :, None], kt[i % copies], vt[i % copies],
+                attn_mask=mask, enable_gqa=True)),
+            "bound_ms": bb, "bound_by": by3})
+        del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    main3 = next(r for r in k3_rows if (r["B"], r["S"]) == K3_MAIN)
+    results["K3"] = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+        "shape": f"B={K3_MAIN[0]}, H={H}, Hkv={HKV}, hd={HD}, S={K3_MAIN[1]}, "
+                 "bf16, lengths in [1, S]",
+        "tolerance": BF16_ATOL,
+        **{key: main3[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}}
+    emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
+          "K3": k3_rows})
+
+    # -- route ---------------------------------------------------------------
+    def owners_ok(keys_np):
+        want = state.active_ids()
+        want = want[np.searchsorted(want, keys_np) % want.size]
+        for use_buckets in (True, False):
+            if not np.array_equal(state.lookup(keys_np, use_buckets=use_buckets),
+                                  want):
+                raise AssertionError(f"lookup(use_buckets={use_buckets})")
+
+    t0 = time.perf_counter()
+    owners_ok(keys)
+    route_s = time.perf_counter() - t0
+    live = state.active_ids()
+    gone = live[rng.choice(live.size, 32, replace=False)]
+    fresh = rng.integers(0, 2**64, size=32, dtype=np.uint64)
+    state.apply_events([Event(int(p), "leave", seq=1) for p in gone]
+                       + [Event(int(p), "join", seq=1) for p in fresh])
+    dirty = int(state._bkt_dirty.sum())
+    deltas, sent = state.delta_uploads, state.upload_bytes
+    state.device_bucket_table()
+    if state.delta_uploads != deltas + 1 \
+            or state.upload_bytes != sent + dirty * (128 * 8 + 4):
+        raise AssertionError("the EDRA batch did not ship as a delta upload")
+    owners_ok(keys)
+    uploads = state.upload_count
+    small = keys[:4096]
+    t0 = time.perf_counter()
+    for i in range(100):
+        state.lookup(small, use_buckets=bool(i % 2))
+    lookup_ms = (time.perf_counter() - t0) * 10
+    if state.upload_count != uploads:
+        raise AssertionError("an unchanged membership re-uploaded a table")
+    emit({"phase": "route", "peers": len(state), "keys": N_KEYS,
+          "both_paths_s": route_s, "dirty_rows": dirty,
+          "delta_bytes": dirty * (128 * 8 + 4),
+          "lookup_4096_keys_ms_host": lookup_ms, "uploads": uploads})
+    del state, table, khi, klo, got1, plain1, got2, plain2, table64, keys64
+    torch.cuda.empty_cache()
+
+    # -- serve ---------------------------------------------------------------
+    cfg = get_config("qwen2.5-3b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+    for i in range(4):
+        mem.request_join(f"10.2.0.{i}", 9000)
+    router = SessionRouter(mem)
+    reqs = [Request(f"user-{i}", rng.integers(0, cfg.vocab, int(n),
+                                              dtype=np.int32), 32)
+            for i, n in enumerate(rng.integers(128, 1025, size=32))]
+    for ops_fn in (rl_ops.ring_lookup64, rl_ops.ring_lookup_bucketed,
+                   da_ops.decode_attention):
+        ops_fn.launches = 0
+    owner_of = dict(zip([r.session_id for r in reqs],
+                        router.route([r.session_id for r in reqs])))
+
+    def run(fused: bool):
+        reps = {}
+        for node in mem.members():
+            reps[node] = Replica(model, slots=32, max_len=2048,
+                                 prefill_chunk=256, device=dev)
+            reps[node].attach_params(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = {r.session_id: [reps[owner_of[r.session_id]].admit(r)]
+                   for r in reqs}
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        replica_rounds, round_ms = 0, []
+        for _ in range(32):
+            t0 = time.perf_counter()
+            for node, rep in reps.items():
+                if not rep.sessions:
+                    continue
+                route = mem.ring_state.device_bucket_table() if fused else None
+                for sid, tok in rep.decode_round(route=route).items():
+                    streams[sid].append(tok)
+                replica_rounds += 1
+                if fused and any(rep.routed_owners[s] != owner_of[s]
+                                 or owner_of[s] != node for s in rep.sessions):
+                    raise AssertionError("a fused round routed off-owner")
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+        buckets = sorted(len(rep.sessions) for rep in reps.values())
+        del reps
+        torch.cuda.empty_cache()
+        return streams, prefill_s, round_ms, replica_rounds, buckets
+
+    k3_before = da_ops.decode_attention.launches
+    fused = run(True)
+    k3_fused = da_ops.decode_attention.launches - k3_before
+    k2_fused = rl_ops.ring_lookup_bucketed.launches
+    unfused = run(False)
+    launches = {"K1": rl_ops.ring_lookup64.launches,
+                "K2": rl_ops.ring_lookup_bucketed.launches,
+                "K3": da_ops.decode_attention.launches}
+    if fused[0] != unfused[0]:
+        raise AssertionError("fused and unfused token streams differ")
+    toks = np.array([t for s in fused[0].values() for t in s])
+    if toks.min() < 0 or toks.max() >= cfg.vocab \
+            or any(len(s) != 33 for s in fused[0].values()):
+        raise AssertionError("tokens out of range or streams cut short")
+    if k3_fused != cfg.num_layers * fused[3] or k2_fused != fused[3] \
+            or launches["K3"] != cfg.num_layers * (fused[3] + unfused[3]) \
+            or launches["K2"] != fused[3] or launches["K1"] < 1:
+        raise AssertionError(f"launch counts {launches} off the main path")
+    # a whole-width prefill segment gives finite logits and the first token
+    probe = reqs[0]
+    cache = model.init_cache(1, 2048, device=dev)
+    seg = np.zeros(256 * math.ceil(len(probe.prompt) / 256), np.int32)
+    seg[:len(probe.prompt)] = probe.prompt
+    for off in range(0, seg.size, 256):
+        logits, cache = model.prefill_chunk(
+            params, torch.from_numpy(seg[off:off + 256]).to(dev)[None],
+            cache, off)
+    last = logits[0, (len(probe.prompt) - 1) % 256]
+    if not bool(torch.isfinite(logits).all()) \
+            or int(torch.argmax(last)) != fused[0][probe.session_id][0]:
+        raise AssertionError("prefill logits not finite / first token differs")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    emit({"phase": "serve", "model": cfg.name, "params": n_params,
+          "layers": cfg.num_layers, "init_s": init_s,
+          "sessions_per_replica": fused[4], "replica_rounds": fused[3],
+          "prompt_tokens": prompt_tokens,
+          "prefill_tokens_per_s": {"fused": prompt_tokens / fused[1],
+                                   "unfused": prompt_tokens / unfused[1]},
+          "decode_ms_per_round": {
+              "fused_mean": float(np.mean(fused[2][1:])),
+              "unfused_mean": float(np.mean(unfused[2][1:])),
+              "fused_first": fused[2][0]},
+          "launches": launches, "tokens_equal": True,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+
+    for key in ("K1", "K2", "K3"):
+        results[key]["launches"] = launches[key]
+        results[key]["max_err"] = results[key]["max_abs_err"]
+    emit({"kernels": [results[k] for k in ("K1", "K2", "K3")]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def _device():
+    import torch
+    return torch.device("cuda", 0)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+// Ring lookup kernels for Hopper (sm_90a): K1 (flat) and K2 (bucketed).
+//
+// Both take 64-bit ring ids as (hi, lo) uint32 word pairs.  PyTorch hands
+// the words over as int32 tensors that carry the uint32 bit patterns; the
+// kernels read them as uint32_t and compare the recombined uint64 values,
+// which is exactly the lexicographic (hi, lo) order of the TPU kernels.
+//
+// K1 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup64_pallas.
+//   The TPU kernel counts table entries < key with an O(n) broadcast
+//   compare, a choice for the VPU's lanes.  Here one thread per key runs a
+//   branchless lower-bound binary search over the n live entries: log2(n)
+//   dependent loads instead of n compares.  Bound on this card: the keys,
+//   the output and the live table are each touched once (bytes); the
+//   8 MiB table of a 10^6-peer ring stays resident in the 50 MB L2, so the
+//   random probes of the search are L2 hits, and 2^20 independent keys in
+//   flight hide their latency.  n is read from device memory, so a lookup
+//   never syncs the host on it.  Returns count % n, like the TPU kernel.
+//
+// K2 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup_bucketed_pallas.
+//   One warp per key: the bucket is the top R bits of hi; each lane loads 4
+//   of the row's 128 slots (lanes on neighbouring addresses, so one row is
+//   four coalesced 128-byte reads per word), compares them against the key,
+//   and __ballot_sync/__popc give the count of live slots below it.  Lane 0
+//   then writes row[count]: the owner id.  Bound on this card: bytes — one
+//   1 KiB row pair per key plus the keys and owners; the directory is sized
+//   to fit L2 (kernels/backend.py::bucket_budget_bytes), so rows hit L2.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRowWidth = 128;   // = RingState._BUCKET_ROW
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint64_t id64(uint32_t hi, uint32_t lo) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+__global__ void ring_lookup64_kernel(const uint32_t* __restrict__ keys_hi,
+                                     const uint32_t* __restrict__ keys_lo,
+                                     const uint32_t* __restrict__ table_hi,
+                                     const uint32_t* __restrict__ table_lo,
+                                     const int32_t* __restrict__ n_live,
+                                     int32_t* __restrict__ out, int64_t q) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= q) return;
+  const int32_t n = *n_live;
+  if (n <= 0) {            // RingState raises on an empty table first
+    out[i] = 0;
+    return;
+  }
+  const uint64_t key = id64(keys_hi[i], keys_lo[i]);
+  // branchless lower bound: after the loop, base is the last entry < key
+  // (or the first entry), and the count is base + [table[base] < key]
+  int32_t base = 0;
+  int32_t len = n;
+  while (len > 1) {
+    const int32_t half = len >> 1;
+    const int32_t mid = base + half;
+    base = id64(table_hi[mid], table_lo[mid]) < key ? mid : base;
+    len -= half;
+  }
+  const int32_t count = base + (id64(table_hi[base], table_lo[base]) < key);
+  out[i] = count == n ? 0 : count;
+}
+
+__global__ void ring_lookup_bucketed_kernel(const uint32_t* __restrict__ keys_hi,
+                                            const uint32_t* __restrict__ keys_lo,
+                                            const uint32_t* __restrict__ bkt_hi,
+                                            const uint32_t* __restrict__ bkt_lo,
+                                            const int32_t* __restrict__ occ,
+                                            uint32_t* __restrict__ out_hi,
+                                            uint32_t* __restrict__ out_lo,
+                                            int64_t q, int bits) {
+  const int lane = threadIdx.x & 31;
+  // blockDim is a multiple of 32, so i is the same on every lane of a warp
+  const int64_t i = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  if (i >= q) return;
+  const uint32_t qh = keys_hi[i];
+  const uint64_t key = id64(qh, keys_lo[i]);
+  const uint32_t b = bits > 0 ? (qh >> (32 - bits)) : 0u;
+  const uint32_t* row_hi = bkt_hi + static_cast<size_t>(b) * kRowWidth;
+  const uint32_t* row_lo = bkt_lo + static_cast<size_t>(b) * kRowWidth;
+  const int live = occ[b];
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < kRowWidth / 32; ++k) {
+    const int j = k * 32 + lane;
+    const bool lt = j < live && id64(row_hi[j], row_lo[j]) < key;
+    count += __popc(__ballot_sync(0xffffffffu, lt));
+  }
+  count = min(count, kRowWidth - 1);   // occ < 128 keeps a pad slot
+  if (lane == 0) {
+    out_hi[i] = row_hi[count];
+    out_lo[i] = row_lo[count];
+  }
+}
+
+}  // namespace
+
+extern "C" int ring_lookup64_launch(const void* keys_hi, const void* keys_lo,
+                                    const void* table_hi, const void* table_lo,
+                                    const void* n_live, void* out, int64_t q,
+                                    void* stream) {
+  const int64_t blocks = (q + kThreads - 1) / kThreads;
+  ring_lookup64_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys_hi), static_cast<const uint32_t*>(keys_lo),
+      static_cast<const uint32_t*>(table_hi), static_cast<const uint32_t*>(table_lo),
+      static_cast<const int32_t*>(n_live), static_cast<int32_t*>(out), q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ring_lookup_bucketed_launch(const void* keys_hi, const void* keys_lo,
+                                           const void* bkt_hi, const void* bkt_lo,
+                                           const void* occ, void* out_hi, void* out_lo,
+                                           int64_t q, int bits, void* stream) {
+  const int64_t warps_per_block = kThreads / 32;
+  const int64_t blocks = (q + warps_per_block - 1) / warps_per_block;
+  ring_lookup_bucketed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys_hi), static_cast<const uint32_t*>(keys_lo),
+      static_cast<const uint32_t*>(bkt_hi), static_cast<const uint32_t*>(bkt_lo),
+      static_cast<const int32_t*>(occ), static_cast<uint32_t*>(out_hi),
+      static_cast<uint32_t*>(out_lo), q, bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

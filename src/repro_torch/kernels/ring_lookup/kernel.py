@@ -1,0 +1,66 @@
+"""Launchers of the CUDA ring-lookup kernels (``csrc/ring_lookup.cu``).
+
+K1 ``ring_lookup64_cuda`` replaces ``ring_lookup64_pallas`` and K2
+``ring_lookup_bucketed_cuda`` replaces ``ring_lookup_bucketed_pallas``
+(``repro/kernels/ring_lookup/kernel.py``); the design notes sit in the
+CUDA source.  Outputs are allocated here with ``torch.empty``; the
+kernels launch on the current stream and do not synchronise.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import build
+
+
+def _check(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expects tensors on one CUDA device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous int32 tensors")
+    return dev
+
+
+def ring_lookup64_cuda(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
+                       table_hi: torch.Tensor, table_lo: torch.Tensor,
+                       n: torch.Tensor) -> torch.Tensor:
+    """(Q,) key words, (CAP,) sorted table words, (1,) n -> (Q,) int32."""
+    dev = _check("ring_lookup64", keys_hi, keys_lo, table_hi, table_lo, n)
+    q = keys_hi.numel()
+    if keys_lo.numel() != q or table_lo.numel() != table_hi.numel() \
+            or n.numel() != 1:
+        raise ValueError("ring_lookup64: mismatched word shapes")
+    out = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        build.launch("ring_lookup64_launch", keys_hi.data_ptr(),
+                     keys_lo.data_ptr(), table_hi.data_ptr(),
+                     table_lo.data_ptr(), n.data_ptr(), out.data_ptr(), q,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def ring_lookup_bucketed_cuda(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
+                              bkt_hi: torch.Tensor, bkt_lo: torch.Tensor,
+                              occ: torch.Tensor):
+    """(Q,) key words, (B, 128) bucket rows, (B,) occupancy -> owner
+    words ((Q,) hi, (Q,) lo) int32."""
+    dev = _check("ring_lookup_bucketed", keys_hi, keys_lo, bkt_hi, bkt_lo, occ)
+    q = keys_hi.numel()
+    nb = bkt_hi.shape[0]
+    bits = nb.bit_length() - 1
+    if nb != 1 << bits:
+        raise ValueError(f"bucket count {nb} is not a power of two")
+    if bkt_hi.shape != (nb, 128) or bkt_lo.shape != (nb, 128) \
+            or occ.shape != (nb,) or keys_lo.numel() != q:
+        raise ValueError("ring_lookup_bucketed: mismatched shapes")
+    out_hi = torch.empty(q, dtype=torch.int32, device=dev)
+    out_lo = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        build.launch("ring_lookup_bucketed_launch", keys_hi.data_ptr(),
+                     keys_lo.data_ptr(), bkt_hi.data_ptr(), bkt_lo.data_ptr(),
+                     occ.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(), q,
+                     bits, torch.cuda.current_stream(dev).cuda_stream)
+    return out_hi, out_lo

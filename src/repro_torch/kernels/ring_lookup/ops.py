@@ -1,0 +1,40 @@
+"""Public ring-lookup wrappers: CPU tensors take the plain versions, CUDA
+tensors launch the CUDA kernels (or raise).  ``<wrapper>.launches``
+counts kernel launches, so a run can show its main path went through
+the kernels."""
+from __future__ import annotations
+
+import torch
+
+from .kernel import ring_lookup64_cuda, ring_lookup_bucketed_cuda
+from .ref import ring_lookup64_ref, ring_lookup_bucketed_ref
+
+
+def ring_lookup64(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
+                  table_hi: torch.Tensor, table_lo: torch.Tensor,
+                  n: torch.Tensor) -> torch.Tensor:
+    """Full 64-bit successor lookup on a capacity-padded hi/lo table
+    (K1): (Q,) int32 successor indices into the ``n`` live entries."""
+    if keys_hi.device.type == "cpu":
+        return ring_lookup64_ref(keys_hi, keys_lo, table_hi, table_lo, n)
+    out = ring_lookup64_cuda(keys_hi, keys_lo, table_hi, table_lo, n)
+    if out.numel():
+        ring_lookup64.launches += 1
+    return out
+
+
+def ring_lookup_bucketed(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
+                         bkt_hi: torch.Tensor, bkt_lo: torch.Tensor,
+                         occ: torch.Tensor):
+    """Two-level successor lookup (K2): O(bucket row) work per key;
+    returns the owner id words ((Q,) hi, (Q,) lo)."""
+    if keys_hi.device.type == "cpu":
+        return ring_lookup_bucketed_ref(keys_hi, keys_lo, bkt_hi, bkt_lo, occ)
+    out = ring_lookup_bucketed_cuda(keys_hi, keys_lo, bkt_hi, bkt_lo, occ)
+    if out[0].numel():
+        ring_lookup_bucketed.launches += 1
+    return out
+
+
+ring_lookup64.launches = 0
+ring_lookup_bucketed.launches = 0

@@ -1,0 +1,44 @@
+"""Weights for the port: from ``repro``'s parameter tree, or drawn anew.
+
+``params_from_jax`` takes ``jax.device_get(repro Model(cfg).init(key))``
+as a tree of numpy arrays and returns the port's parameters.  The port
+keeps ``repro``'s names, its ``(in, out)`` matrices and its stacked
+``layers`` axis (``repro/models/transformer.py``), so the mapping is the
+identity on names and shapes; this is the one place that checks it.
+``init_params`` draws random weights on the device instead.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+from .transformer import init_params, param_shapes
+
+__all__ = ["params_from_jax", "init_params"]
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device) -> Dict[str, Any]:
+    """numpy tree with ``repro``'s names -> torch tensors on ``device``
+    in ``cfg.dtype`` (bf16 arrays widen to f32 on the host first, which
+    is exact, since numpy has no bfloat16 that torch reads)."""
+    dtype = L.dt(cfg)
+
+    def walk(src, shapes, path):
+        if isinstance(shapes, dict):
+            if not isinstance(src, dict) or set(src) != set(shapes):
+                got = sorted(src) if isinstance(src, dict) else type(src)
+                raise ValueError(f"{path or 'params'}: expected keys "
+                                 f"{sorted(shapes)}, got {got}")
+            return {k: walk(src[k], shapes[k], f"{path}/{k}") for k in shapes}
+        arr = np.asarray(src)
+        if tuple(arr.shape) != tuple(shapes):
+            raise ValueError(f"{path}: shape {arr.shape} != {shapes}")
+        return torch.from_numpy(np.ascontiguousarray(
+            arr.astype(np.float32))).to(device=device, dtype=dtype)
+
+    return walk(tree, param_shapes(cfg), "")

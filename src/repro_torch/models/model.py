@@ -1,0 +1,90 @@
+"""Model facade of the port (``repro.models.model.Model``), dense family.
+
+    m = Model(cfg)
+    params = m.init(generator, device=...)      # random weights on device
+    params = m.load(tree_of_numpy, device=...)  # repro's weights
+    cache = m.init_cache(batch, max_len, device=...)
+    logits, cache = m.prefill(params, {"tokens": t}, cache)
+    logits, cache = m.decode_step(params, cache, tokens, index)
+
+``device=None`` means the CUDA card and raises without one; pass
+``device="cpu"`` to run on the host with the kernels' plain versions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.backend import resolve_device, strict_fp32
+from . import convert, transformer
+
+Params = Dict[str, Any]
+
+
+def _on(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        strict_fp32()
+    return dev
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self) -> None:
+        c = self.cfg
+        if c.family != "dense" or c.moe_experts or c.mla_kv_lora:
+            raise NotImplementedError(
+                f"family {c.family!r} is not ported yet (dense only)")
+
+    # -- parameters ----------------------------------------------------------
+    def init(self, generator: Optional[torch.Generator] = None, *,
+             device=None) -> Params:
+        """Random weights drawn on the device (seed 0 by default)."""
+        dev = _on(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return transformer.init_params(self.cfg, generator, dev)
+
+    def load(self, tree: Dict[str, Any], *, device=None) -> Params:
+        """``repro``'s parameter tree, as numpy, onto the device."""
+        return convert.params_from_jax(tree, self.cfg, _on(device))
+
+    # -- serving ---------------------------------------------------------------
+    @property
+    def supports_per_slot_decode(self) -> bool:
+        """decode_step accepts a (B,) per-slot index tensor."""
+        return True
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """prefill_chunk can continue a prefill mid-cache."""
+        return True
+
+    def init_cache(self, batch: int, max_len: int, *, device=None):
+        return transformer.init_cache(self.cfg, batch, max_len, _on(device))
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                cache) -> Tuple[torch.Tensor, Any]:
+        """Process the prompt, filling the cache from position 0."""
+        return transformer.forward_with_cache(params, batch["tokens"], cache,
+                                              self.cfg, 0)
+
+    def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache,
+                      index: int) -> Tuple[torch.Tensor, Any]:
+        """One fixed-shape prefill segment from cache position ``index``;
+        returns ALL-position logits (B, S, V)."""
+        return transformer.forward_with_cache(params, tokens, cache, self.cfg,
+                                              index, chunk=True)
+
+    def decode_step(self, params: Params, cache, tokens: torch.Tensor,
+                    index) -> Tuple[torch.Tensor, Any]:
+        """One token per sequence.  ``index`` is the current cache length:
+        an int steps every row in lockstep; a (B,) tensor steps each slot
+        at its OWN position (each < max_len)."""
+        return transformer.forward_with_cache(params, tokens, cache, self.cfg,
+                                              index)

@@ -1,0 +1,157 @@
+"""Dense decoder-only transformer of the port (``repro.models.transformer``).
+
+Parameters keep ``repro``'s tree: names, ``(in, out)`` matrices, and the
+layer weights stacked on a leading ``layers`` axis; the forward pass
+walks that axis in a Python loop.  The KV cache is ``{"k", "v"}`` of
+(layers, batch, max_len, kv_heads, head_dim), written in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """Shape tree of ``init_params`` (the dense family)."""
+    d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, n = cfg.resolved_head_dim, cfg.num_layers
+    attn = {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+            "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        attn.update({"bq": (h * hd,), "bk": (hkv * hd,), "bv": (hkv * hd,)})
+    mlp = {"w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d), "w3": (d, cfg.d_ff)}
+    emb = {"embedding": (cfg.vocab, d)}
+    if not cfg.tie_embeddings:
+        emb["lm_head"] = (d, cfg.vocab)
+    stack = {"ln1": (d,), "ln2": (d,), "attn": attn, "mlp": mlp}
+    return {
+        "embed": emb,
+        "layers": _map(lambda s: (n,) + s, stack),
+        "ln_f": (d,),
+    }
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random weights drawn on ``device`` from ``generator`` (which must
+    live on that device), with ``repro.models.layers._make``'s
+    distributions: N(0, 1/fan_in) matrices (fan_in = d_model), N(0,
+    0.02^2) embedding and head, zero biases, unit norms.  Stacked
+    weights are drawn one layer at a time to bound the f32 temporary."""
+    dtype = L.dt(cfg)
+    shapes = param_shapes(cfg)
+
+    def draw(shape, std, stacked):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for sl in (range(shape[0]) if stacked else [slice(None)]):
+            out[sl] = (torch.randn(out[sl].shape, generator=generator,
+                                   dtype=torch.float32, device=device)
+                       * std).to(dtype)
+        return out
+
+    def leaf(name, shape, stacked, std):
+        if name.startswith("ln"):
+            return torch.ones(shape, dtype=dtype, device=device)
+        if len(shape) == (2 if stacked else 1):      # biases
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return draw(shape, std, stacked)
+
+    inv = 1.0 / math.sqrt(cfg.d_model)
+    lay = shapes["layers"]
+    return {
+        "embed": {k: leaf(k, s, False, 0.02)
+                  for k, s in sorted(shapes["embed"].items())},
+        "layers": {
+            "ln1": leaf("ln1", lay["ln1"], True, inv),
+            "ln2": leaf("ln2", lay["ln2"], True, inv),
+            "attn": {k: leaf(k, s, True, inv)
+                     for k, s in sorted(lay["attn"].items())},
+            "mlp": {k: leaf(k, s, True, inv)
+                    for k, s in sorted(lay["mlp"].items())},
+        },
+        "ln_f": leaf("ln_f", shapes["ln_f"], False, inv),
+    }
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Tuple]:
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device) -> Dict[str, torch.Tensor]:
+    return {name: torch.zeros(shape, dtype=L.dt(cfg), device=device)
+            for name, shape in cache_shapes(cfg, batch, max_len).items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _layer(params: Params, i: int) -> Params:
+    return _map(lambda t: t[i], params["layers"])
+
+
+def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
+                positions: torch.Tensor, cache: Optional[Tuple],
+                cache_index, chunk: bool) -> torch.Tensor:
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _ = L.attention(lp["attn"], h, cfg, positions=positions, cache=cache,
+                       cache_index=cache_index, chunk=chunk)
+    x = x + a
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp(lp["mlp"], h, cfg)
+
+
+def forward_with_cache(params: Params, tokens: torch.Tensor, cache: Dict,
+                       cfg: ModelConfig, cache_index, *,
+                       chunk: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """Prefill (S>1) or decode (S==1): returns (last-position logits, cache).
+
+    ``cache_index`` is an int (prefill / lockstep decode) or a (B,)
+    tensor of per-slot cache positions (continuous-batching decode:
+    every row writes and attends at its own length).  ``chunk=True``
+    marks a fixed-shape continuation prefill segment (int index,
+    possibly > 0): attention spans the whole cache under the absolute
+    causal mask, and ALL-position logits (B, S, V) come back so the
+    caller can pick the true last prompt position of a right-padded
+    segment.  The cache is updated in place and returned."""
+    x = L.embed(params["embed"], tokens, cfg)
+    b, s = x.shape[:2]
+    steps = torch.arange(s, device=x.device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.dim():
+        positions = cache_index.to(x.device, torch.int64)[:, None] + steps
+    else:
+        cache_index = int(cache_index)
+        positions = (cache_index + steps).expand(b, s)
+    for i in range(cfg.num_layers):
+        x = _layer_body(cfg, _layer(params, i), x, positions=positions,
+                        cache=(cache["k"][i], cache["v"][i]),
+                        cache_index=cache_index, chunk=chunk)
+    if chunk:
+        h = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return L.logits_fn(params["embed"], h, cfg), cache
+    h = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    return L.logits_fn(params["embed"], h, cfg)[:, 0], cache

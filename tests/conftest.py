@@ -1,5 +1,7 @@
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips without one")
     # REPRO_SANITIZE=1: run the WHOLE suite with the runtime invariant
     # sanitizer installed (RingState monotonicity + lookup oracle,
     # BlockStore replication/tombstones, Replica slot conservation) —

@@ -1,0 +1,218 @@
+"""The port's kernels on the card, each held against its plain version,
+and the rule that a CUDA tensor never reaches a plain version.  Tests
+marked ``cuda`` skip without a card; this file imports no jax, so it
+runs on a machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The unmarked tests run everywhere: entry points refuse to fall back to
+the CPU on their own, and the kernel launchers refuse non-CUDA tensors.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.ringstate import RingState
+from repro_torch.kernels.backend import strict_fp32
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.ring_lookup import ops as rl_ops
+from repro_torch.kernels.ring_lookup import ref as rl_ref
+from repro_torch.models import Model
+from repro_torch.runtime import Membership
+from repro_torch.serve import Replica, Request
+
+# one intra-op thread: the suite runs in several worker processes, and
+# idle OpenMP threads spinning after each op would take their cores
+torch.set_num_threads(1)
+
+# bf16 output: kernel and plain version both compute in f32 and round
+# once; 2 bf16 ulps at |out| < 2 is 2^-6
+BF16_ATOL = 1.6e-2
+F32_ATOL = 2e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernels are CUDA C++ for sm_90a")
+    strict_fp32()
+    return torch.device("cuda")
+
+
+def _words(ids: np.ndarray, device):
+    ids = np.asarray(ids, np.uint64)
+    hi = (ids >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (ids & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device)
+
+
+def _ring(n, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = np.unique(rng.integers(0, 2**64, size=n + n // 8 + 8,
+                                 dtype=np.uint64))[:n]
+    one = np.uint64(1)
+    keys = np.concatenate([rng.integers(0, 2**64, size=4096, dtype=np.uint64),
+                           ids, ids + one, ids - one,
+                           np.array([0, 2**64 - 1], np.uint64)])
+    return ids, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 2048, 100_000])
+def test_ring_lookup64_kernel_equals_plain(cuda, n):
+    ids, keys = _ring(n)
+    state = RingState(ids, device=cuda)
+    thi, tlo, live = state.device_table()
+    khi, klo = _words(keys, cuda)
+    before = rl_ops.ring_lookup64.launches
+    got = rl_ops.ring_lookup64(khi, klo, thi, tlo, live)
+    torch.cuda.synchronize()
+    assert rl_ops.ring_lookup64.launches == before + 1
+    want = rl_ref.ring_lookup64_ref(khi, klo, thi, tlo, live)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        ids[got.cpu().numpy()], ids[np.searchsorted(ids, keys) % ids.size])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 100_000])
+def test_ring_lookup_bucketed_kernel_equals_plain(cuda, n):
+    ids, keys = _ring(n, seed=1)
+    state = RingState(ids, device=cuda)
+    table = state.device_bucket_table()
+    khi, klo = _words(keys, cuda)
+    before = rl_ops.ring_lookup_bucketed.launches
+    got = rl_ops.ring_lookup_bucketed(khi, klo, *table)
+    torch.cuda.synchronize()
+    assert rl_ops.ring_lookup_bucketed.launches == before + 1
+    want = rl_ref.ring_lookup_bucketed_ref(khi, klo, *table)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(
+        state.lookup(keys, use_buckets=True),
+        ids[np.searchsorted(ids, keys) % ids.size])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,hd,s", [
+    (1, 16, 2, 128, 2048), (8, 16, 2, 128, 2000), (3, 4, 2, 16, 37),
+    (2, 8, 8, 64, 300),
+])
+def test_decode_attention_kernel_equals_plain(cuda, dtype, b, h, hkv, hd, s):
+    g = torch.Generator(device=cuda).manual_seed(b * s)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    length = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    length[0] = 1
+    before = da_ops.decode_attention.launches
+    got = da_ops.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    want = da_ref.decode_attention_ref(q, k, v, length)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_attention_length_zero_is_mean_of_v(cuda):
+    q = torch.randn((2, 4, 32), device=cuda)
+    k = torch.randn((2, 40, 2, 32), device=cuda)
+    v = torch.randn((2, 40, 2, 32), device=cuda)
+    length = torch.tensor([0, 40], dtype=torch.int32, device=cuda)
+    got = da_ops.decode_attention(q, k, v, length)
+    mean_v = v[0].mean(dim=0).repeat_interleave(2, dim=0)     # (H, hd)
+    torch.testing.assert_close(got[0], mean_v, atol=F32_ATOL, rtol=0)
+    torch.testing.assert_close(got, da_ref.decode_attention_ref(q, k, v, length),
+                               atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(rl_ops, "ring_lookup64_ref", refuse)
+    monkeypatch.setattr(rl_ops, "ring_lookup_bucketed_ref", refuse)
+    monkeypatch.setattr(da_ops, "decode_attention_ref", refuse)
+    ids, keys = _ring(3000, seed=2)
+    state = RingState(ids, device=cuda)
+    want = ids[np.searchsorted(ids, keys) % ids.size]
+    for use_buckets in (True, False):
+        np.testing.assert_array_equal(
+            state.lookup(keys, use_buckets=use_buckets), want)
+    q = torch.randn((1, 2, 16), device=cuda)
+    kv = torch.randn((1, 8, 1, 16), device=cuda)
+    da_ops.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32,
+                                                  device=cuda))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_replica_on_the_card_matches_the_cpu(cuda):
+    """f32 smoke model, TF32 off: fused rounds on the card give the CPU
+    replica's tokens and owners."""
+    cfg = get_smoke_config("qwen2.5-3b").with_overrides(dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (3, 9, 17)]
+    streams = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+        for i in range(4):
+            mem.request_join(f"10.2.0.{i}", 9000)
+        rep = Replica(model, slots=8, max_len=64, prefill_chunk=8, device=dev)
+        rep.attach_params(p)
+        got = {f"s{i}": [rep.admit(Request(f"s{i}", pr))]
+               for i, pr in enumerate(prompts)}
+        owners = []
+        for _ in range(6):
+            for sid, tok in rep.decode_round(
+                    route=mem.ring_state.device_bucket_table()).items():
+                got[sid].append(tok)
+            owners.append(dict(rep.routed_owners))
+        streams[str(dev)] = (got, owners)
+    assert streams["cpu"] == streams[str(cuda)]
+
+
+# ---------------------------------------------------------------------------
+# everywhere: no silent fallback to the CPU, no plain version off the CPU
+# ---------------------------------------------------------------------------
+
+def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Model(get_smoke_config("qwen2.5-3b"))
+    for call in (lambda: model.init(),
+                 lambda: model.init_cache(1, 8),
+                 lambda: Replica(model, slots=2, max_len=8),
+                 lambda: RingState([1, 2, 3]).device_bucket_table(),
+                 lambda: Membership().ring_state.device_table()):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+def test_launchers_refuse_non_cuda_tensors():
+    meta = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        rl_ops.ring_lookup64(meta, meta, meta, meta, meta[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        rl_ops.ring_lookup_bucketed(
+            meta, meta, torch.empty((1, 128), dtype=torch.int32,
+                                    device="meta"),
+            torch.empty((1, 128), dtype=torch.int32, device="meta"),
+            meta[:1])
+    q = torch.empty((1, 2, 16), device="meta")
+    kv = torch.empty((1, 8, 1, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        da_ops.decode_attention(q, kv, kv, meta[:1])
