@@ -7,9 +7,13 @@ Builds qwen2.5-3b at full width (random weights from a seed), one
 Replica (32 slots, 2048 positions, 256-token prefill chunks) holding 16
 sessions of 128-1024 prompt tokens, then traces with ``torch.profiler``:
 5 fused decode rounds (a bucket of 16), then 3 prefill chunks of one
-more admit.  Prints one JSON line per window: host wall time, device busy
-time (the union of the kernels' intervals), the idle share, and the
-ops with the most device time.  Needs a CUDA card; imports no jax.
+more admit.  Then one D1HT ``simulate_churn`` of the §VII churn cell
+(n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
+one warm-up run: its host-side event stream (also timed alone) and
+draws, K4 and the device metering.  Prints
+one JSON line per window: host wall time, device busy time (the union
+of the kernels' intervals), the idle share, and the ops with the most
+device time.  Needs a CUDA card; imports no jax.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _window(label: str, fn, steps: int) -> None:
+def _window(label: str, fn, steps: int, **extra) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -54,7 +58,7 @@ def _window(label: str, fn, steps: int) -> None:
     print(json.dumps({"window": label, "steps": steps,
                       "wall_ms_per_step": wall / steps,
                       "device_busy_ms_per_step": busy / steps,
-                      "idle_share": 1.0 - busy / wall,
+                      "idle_share": 1.0 - busy / wall, **extra,
                       "top_device_ops": top}), flush=True)
 
 
@@ -65,6 +69,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core.churn import ChurnConfig
+    from repro_torch.core.sim import _churn_event_stream, simulate_churn
     from repro_torch.kernels.backend import nvidia_smi_line
     from repro_torch.models import Model
     from repro_torch.runtime import Membership
@@ -92,6 +98,14 @@ def main() -> int:
                                                  dtype=np.int32)))
     rep.advance_prefills()               # warm-up chunk
     _window("prefill_chunk_256", rep.advance_prefills, 3)
+    cell = ChurnConfig(n=10**6, s_avg=174 * 60, duration=1800.0,
+                       warmup=300.0, seed=1)
+    simulate_churn(cell, device=dev)     # warm-up: CUDA module loading
+    t0 = time.perf_counter()
+    _churn_event_stream(cell, np.random.default_rng(cell.seed))
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    _window("churn_d1ht_n1e6", lambda: simulate_churn(cell, device=dev), 1,
+            host_event_stream_ms=stream_ms)
     return 0
 
 

@@ -23,7 +23,22 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            schedule unfused.  Fused and unfused tokens must be equal,
            every routed owner must be the router's, and the kernels'
            launch counters (zeroed just before) must show the path ran
-           through K1, K2 and K3 (K3: 36 launches per replica round).
+           through K1, K2 and K3 (K3: 36 launches per replica round);
+  churn    K4 (edra_tree) on one 2^21-pair batch at n ~ 10^6 in its three
+           variants at the D1HT operating point of the cell, held
+           against its plain version (integers exactly, ack within
+           rtol 3e-5 / atol 1e-3; the count of acks not bit-equal is
+           printed), with kernel, plain and bound times; then the §VII
+           churn cell, ``simulate_churn`` at n = 10^6, s_avg = 174 min,
+           a 1800 s window after 300 s of warm-up, seed 1, for D1HT and
+           1h-Calot: one-hop >= 0.99, equal events, Calot's bandwidth
+           above D1HT's, each within [0.5, 2] of its analytical model,
+           and ceil(pairs / 2^21) K4 launches per run;
+  latency  the measured Figs 5-6 plane: the service profile, idle rows
+           at n = 800..4000 with route times from K1/K2 on the card and
+           f' from the churn plane (600 s windows), and a model row at
+           10^6 on the churn cell's f'; the Fig-5 shape is checked as
+           far as each row's measured regime allows.
 
 Then the kernel summary line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0.  Without a CUDA
@@ -54,6 +69,17 @@ N_KEYS = 1 << 20
 K3_SHAPES = [(1, 2048), (8, 2048), (16, 2048), (32, 2048), (32, 2000)]   # (B, S)
 K3_MAIN = (16, 2048)               # the largest decode bucket on the path
 H, HKV, HD = 16, 2, 128            # qwen2.5-3b attention
+CHURN = dict(n=10**6, s_avg=174 * 60, duration=1800.0, warmup=300.0,
+             seed=1)               # bench_maintenance.py --full, 10^6 row
+K4_PAIRS = 1 << 21                 # pairs per launch of simulate_churn
+K4_LEVELS = 20                     # ceil(log2(10^6))
+K4_RTOL, K4_ATOL = 3e-5, 1e-3      # repro's kernel-vs-oracle ack tolerance
+# operations K4 does, counted from csrc/edra_tree.cu with logf, sqrtf and
+# the integer modulo as one each (so the bound is a lower one): per pair,
+# per level (bit test and the Rule-8 count), and per hop of the chain by
+# variant (unbuffered, buffered, early close)
+K4_OPS_PAIR, K4_OPS_LEVEL, K4_OPS_HOP = 20, 9, (21, 42, 99)
+LAT_SIZES = (800, 1600, 2400, 3200, 4000)    # Fig. 5's ring sizes
 
 
 def emit(obj) -> None:
@@ -391,13 +417,174 @@ def main() -> int:
           "launches": launches, "tokens_equal": True,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
+    del params, model, cache, logits
+    torch.cuda.empty_cache()
     for key in ("K1", "K2", "K3"):
         results[key]["launches"] = launches[key]
+    results["K4"], churn = churn_phase(dev)
+    latency_phase(dev, churn)
+    for key in results:
         results[key]["max_err"] = results[key]["max_abs_err"]
-    emit({"kernels": [results[k] for k in ("K1", "K2", "K3")]})
+    emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def k4_inputs(dev, seed: int):
+    """One launch's worth of pairs at the cell's scale: rings of
+    10^6 +- a few hundred live peers, offsets and reporters uniform on
+    them, detections across the cell's window, random event keys."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ring = rng.integers(CHURN["n"] - 400, CHURN["n"] + 400, K4_PAIRS,
+                        dtype=np.uint64)
+    words = (rng.integers(0, ring), ring, rng.integers(0, ring),
+             rng.integers(0, 2**32, K4_PAIRS, dtype=np.uint64))
+    t0 = rng.uniform(CHURN["warmup"] - 130.0,
+                     CHURN["warmup"] + CHURN["duration"], K4_PAIRS)
+    offset, n, rep, key = (torch.from_numpy(w.astype(np.uint32).view(
+        np.int32)).to(dev) for w in words)
+    return offset, n, rep, torch.from_numpy(t0.astype(np.float32)).to(dev), key
+
+
+def churn_phase(dev):
+    """K4 against its plain version, then the 10^6-peer churn cell for
+    D1HT and 1h-Calot.  Returns K4's summary row and the two results."""
+    import torch
+    from repro_torch.core.churn import ChurnConfig
+    from repro_torch.core.sim import _churn_event_stream, simulate_churn
+    from repro_torch.core.tuning import EdraParams
+    from repro_torch.kernels.edra_tree import ops as et_ops
+    from repro_torch.kernels.edra_tree.ref import tree_math
+
+    t_phase = time.perf_counter()
+    cfg = ChurnConfig(**CHURN)
+    params = EdraParams.derive(cfg.n, cfg.s_avg, cfg.f)
+    t_ev = _churn_event_stream(cfg, np.random.default_rng(cfg.seed))[0]
+    fill_rate = t_ev.size / (cfg.warmup + cfg.duration)
+    e_cap = float(max(2.0, np.ceil(params.max_events)))
+    variants = {"unbuffered": dict(theta=0.0),
+                "buffered": dict(theta=params.theta),
+                "early_close": dict(theta=params.theta, fill_rate=fill_rate,
+                                    e_cap=e_cap)}
+    rows = {}
+    for i, (name, vkw) in enumerate(variants.items()):
+        args = k4_inputs(dev, seed=SEED + i)
+        kw = dict(levels=K4_LEVELS, delta_avg=70e-6, seed=cfg.seed, **vkw)
+        got = et_ops.edra_tree(*args, **kw)
+        torch.cuda.synchronize()
+        want = tree_math(*args, **kw)
+        for g, w, what in zip(got[1:], want[1:],
+                              ("ttl", "depth", "parent", "sends")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K4 {name}: {what} differs from plain")
+        err = float((got[0] - want[0]).abs().max())
+        if not torch.allclose(got[0], want[0], rtol=K4_RTOL, atol=K4_ATOL):
+            raise AssertionError(f"K4 {name}: ack off by up to {err}")
+        hops = int(got[2].sum())
+        variant = 0 if vkw["theta"] <= 0 else 2 if "fill_rate" in vkw else 1
+        ops = K4_PAIRS * (K4_OPS_PAIR + K4_LEVELS * K4_OPS_LEVEL) \
+            + hops * K4_OPS_HOP[variant]
+        b, by = bound(K4_PAIRS * 40, ops, FP32_FLOPS)
+        rows[name] = {
+            "max_abs_err": err, "ack_not_bit_equal": int(
+                (got[0].view(torch.int32) != want[0].view(torch.int32)).sum()),
+            "hops": hops, "operations": ops,
+            "ms": cuda_ms(lambda j: et_ops.edra_tree(*args, **kw)),
+            "plain_ms": cuda_ms(lambda j: tree_math(*args, **kw), iters=3,
+                                warmup=1),
+            "bound_ms": b, "bound_by": by}
+        del args, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "churn_k4", "pairs": K4_PAIRS, "levels": K4_LEVELS,
+          "theta": params.theta, "fill_rate": fill_rate, "e_cap": e_cap,
+          "delta_avg": 70e-6, "variants": rows})
+
+    runs = {}
+    for proto in ("d1ht", "calot"):
+        et_ops.edra_tree.launches = et_ops.edra_tree.pairs = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = simulate_churn(ChurnConfig(protocol=proto, **CHURN), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, pairs = et_ops.edra_tree.launches, et_ops.edra_tree.pairs
+        runs[proto] = (r, launches)
+        emit({"phase": "churn", **r.summary(), "mean_ack_s": r.mean_ack_s,
+              "p99_ack_s": r.p99_ack_s, "stale_fraction": r.stale_fraction,
+              "wall_s": wall, "events_per_s": r.events / wall,
+              "pairs": pairs, "k4_launches": launches,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        if launches != math.ceil(pairs / K4_PAIRS) or not launches:
+            raise AssertionError(f"{proto}: {launches} K4 launches for "
+                                 f"{pairs} pairs")
+        ratio = r.mean_out_bps / r.analytical_bps
+        if r.one_hop_fraction < 0.99 or not 0.5 <= ratio <= 2.0:
+            raise AssertionError(f"{proto}: {r.summary()}")
+    d1, ca = runs["d1ht"][0], runs["calot"][0]
+    if d1.events != ca.events or not ca.mean_out_bps > d1.mean_out_bps:
+        raise AssertionError("the churn cell lost the paper's ordering")
+    early = rows["early_close"]
+    k4 = {"name": "edra_tree", "route": "cuda",
+          "source": "src/repro_torch/csrc/edra_tree.cu",
+          "replaces": "src/repro/kernels/edra_tree/kernel.py:49",
+          "shape": f"P={K4_PAIRS}, levels={K4_LEVELS}, n~{CHURN['n']}, "
+                   "early close (D1HT)",
+          "tolerance": {"rtol": K4_RTOL, "atol": K4_ATOL},
+          "launches": runs["d1ht"][1] + runs["calot"][1],
+          "library_ms": None,
+          **{key: early[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}}
+    emit({"phase": "churn_done", "seconds": time.perf_counter() - t_phase})
+    return k4, (d1, ca)
+
+
+def latency_phase(dev, churn) -> None:
+    """Figs 5-6 measured on the card: route times from K1/K2, f' from
+    K4's churn plane, the worker service times from local sockets."""
+    from repro_torch.dht import latency_sim
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+
+    t_phase = time.perf_counter()
+    rl_ops.ring_lookup64.launches = rl_ops.ring_lookup_bucketed.launches = 0
+    prof = latency_sim.measure_profile(device=dev)
+    rows = []
+    for n in LAT_SIZES:
+        fp = {p: latency_sim.measured_retry_fraction(n, protocol=p,
+                                                     device=dev)
+              for p in ("d1ht", "calot")}
+        rows.append(latency_sim.latency_point(
+            n, busy=False, profile=prof, fprime=fp, drive_kernel=True,
+            device=dev))
+    d1, ca = churn
+    ext = latency_sim.model_extended_point(
+        CHURN["n"], busy=False, profile=prof,
+        fprime={"d1ht": d1.stale_fraction, "calot": ca.stale_fraction})
+    launches = {"K1": rl_ops.ring_lookup64.launches,
+                "K2": rl_ops.ring_lookup_bucketed.launches}
+    emit({"phase": "latency", "profile": vars(prof),
+          "saturation_clients": prof.saturation_clients(),
+          "rows": rows + [ext], "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if not launches["K1"] or not launches["K2"]:
+        raise AssertionError(f"route timing skipped a kernel: {launches}")
+    d1_means = [r["systems"]["d1ht"]["mean_ms"] for r in rows]
+    if max(d1_means) > 1.1 * min(d1_means):
+        raise AssertionError(f"D1HT latency not flat in n: {d1_means}")
+    for r in rows:
+        s = r["systems"]
+        checked = s if r["sub_saturation"] else \
+            {k: s[k] for k in ("d1ht", "calot", "pastry")}
+        for name, st in checked.items():
+            if not 0.7 <= st["ratio_measured_over_model"] <= 1.4:
+                raise AssertionError(f"n={r['n']} {name}: {st}")
+        # below saturation the directory server keeps up (< 1.5x D1HT),
+        # so a 5x gap can only show on a row past the measured knee
+        slow = s["dserver"]["mean_ms"] / s["d1ht"]["mean_ms"]
+        if r["sub_saturation"] and slow >= 1.5:
+            raise AssertionError(f"n={r['n']}: dserver {slow:.2f}x D1HT")
 
 
 def _device():

@@ -36,6 +36,11 @@ SIGNATURES = {
     # q, k, v, length, out, m_part, l_part, acc_part,
     # B, S, H, Hkv, hd, splits, dtype, vec, scale, stream
     "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # offset, n, reporter, t_detect, event_key, ack, ttl, depth, parent,
+    # sends, p, levels, variant, theta, inv_theta, e_buf, e_cap_m1,
+    # inv_fill, delta, phase_key (a uint32: c_int would wrap >= 2^31), stream
+    "edra_tree_launch": [_P] * 10 + [_L, _I, _I] + [_F] * 6
+    + [ctypes.c_uint32, _P],
 }
 
 _lock = threading.Lock()

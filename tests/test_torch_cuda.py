@@ -13,10 +13,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.churn import ChurnConfig
 from repro_torch.core.ringstate import RingState
+from repro_torch.core.sim import simulate_churn
 from repro_torch.kernels.backend import strict_fp32
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.edra_tree import kernel as et_kernel
+from repro_torch.kernels.edra_tree import ops as et_ops
+from repro_torch.kernels.edra_tree import ref as et_ref
 from repro_torch.kernels.ring_lookup import ops as rl_ops
 from repro_torch.kernels.ring_lookup import ref as rl_ref
 from repro_torch.models import Model
@@ -138,6 +143,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     monkeypatch.setattr(rl_ops, "ring_lookup64_ref", refuse)
     monkeypatch.setattr(rl_ops, "ring_lookup_bucketed_ref", refuse)
     monkeypatch.setattr(da_ops, "decode_attention_ref", refuse)
+    monkeypatch.setattr(et_ops, "tree_math", refuse)
     ids, keys = _ring(3000, seed=2)
     state = RingState(ids, device=cuda)
     want = ids[np.searchsorted(ids, keys) % ids.size]
@@ -148,6 +154,76 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     kv = torch.randn((1, 8, 1, 16), device=cuda)
     da_ops.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32,
                                                   device=cuda))
+    simulate_churn(ChurnConfig(n=512, s_avg=174 * 60, duration=120,
+                               warmup=30, seed=1), device=cuda)
+
+
+EDRA_VARIANTS = [dict(theta=0.0), dict(theta=5.4947),
+                 dict(theta=5.4947, fill_rate=172.8, e_cap=7.0)]
+
+
+def _edra_pairs(p, n, device, seed=0):
+    """(P,) pairs on ring(s) near n; ids as int32 holding uint32 bits."""
+    rng = np.random.default_rng(seed)
+    ring = rng.integers(n - 64, n + 1, p, dtype=np.uint64)
+    words = [rng.integers(0, ring), ring, rng.integers(0, ring),
+             rng.integers(0, 2**32, p, dtype=np.uint64)]
+    offset, nn, rep, key = (torch.from_numpy(w.astype(np.uint32).view(
+        np.int32)).to(device) for w in words)
+    t0 = torch.from_numpy(rng.uniform(0, 2100, p).astype(np.float32))
+    return offset, nn, rep, t0.to(device), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", range(3))
+@pytest.mark.parametrize("n,levels", [(1000, 10), (1_000_000, 20),
+                                      (2**32 - 5, 32)])
+def test_edra_tree_kernel_equals_plain(cuda, variant, n, levels):
+    """Integers bit-equal; ack within repro's rtol=3e-5, atol=1e-3 (the
+    kernel's float steps are the plain version's, one rounding each,
+    so the acks are expected to be bit-equal too)."""
+    args = _edra_pairs(70_001, n, cuda, seed=variant)
+    kw = dict(levels=levels, delta_avg=7e-5, seed=1, **EDRA_VARIANTS[variant])
+    before = et_ops.edra_tree.launches
+    got = et_ops.edra_tree(*args, **kw)
+    torch.cuda.synchronize()
+    assert et_ops.edra_tree.launches == before + 1
+    want = et_ref.tree_math(*args, **kw)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[0], want[0], rtol=3e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_edra_tree_kernel_refuses_wrong_types(cuda):
+    args = list(_edra_pairs(64, 1000, cuda))
+    kw = dict(levels=10, theta=1.0, delta_avg=0.01)
+    for i, bad in ((0, args[0].long()), (3, args[3].double()),
+                   (1, args[1][:32]),
+                   (2, torch.empty(128, dtype=torch.int32,
+                                   device=cuda)[::2])):
+        call = list(args)
+        call[i] = bad
+        with pytest.raises(ValueError, match="edra_tree"):
+            et_ops.edra_tree(*call, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        et_kernel.edra_tree_cuda(*(a.cpu() for a in args), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["d1ht", "calot"])
+def test_simulate_churn_on_the_card_equals_the_cpu(cuda, protocol):
+    cfg = ChurnConfig(n=2048, s_avg=174 * 60, duration=300, warmup=60,
+                      seed=9, protocol=protocol)
+    before = et_ops.edra_tree.launches
+    card = simulate_churn(cfg, device=cuda, chunk=1 << 16)
+    assert et_ops.edra_tree.launches > before
+    host = simulate_churn(cfg, device="cpu", chunk=1 << 16)
+    for f in ("events", "quarantine_admitted", "quarantine_skipped"):
+        assert getattr(card, f) == getattr(host, f)
+    for f in ("one_hop_fraction", "mean_out_bps", "sum_out_bps",
+              "mean_ack_s", "p99_ack_s"):
+        assert getattr(card, f) == pytest.approx(getattr(host, f), rel=1e-6)
 
 
 def _to(tree, device):
@@ -197,6 +273,7 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
                  lambda: model.init_cache(1, 8),
                  lambda: Replica(model, slots=2, max_len=8),
                  lambda: RingState([1, 2, 3]).device_bucket_table(),
+                 lambda: simulate_churn(ChurnConfig(n=64, s_avg=600.0)),
                  lambda: Membership().ring_state.device_table()):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
@@ -216,3 +293,11 @@ def test_launchers_refuse_non_cuda_tensors():
     kv = torch.empty((1, 8, 1, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         da_ops.decode_attention(q, kv, kv, meta[:1])
+    t0 = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        et_ops.edra_tree(meta, meta, meta, t0, meta, levels=4, theta=1.0,
+                         delta_avg=0.01)
+    cpu = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        et_kernel.edra_tree_cuda(cpu, cpu + 5, cpu, cpu.float(), cpu,
+                                 levels=4, theta=1.0, delta_avg=0.01)
