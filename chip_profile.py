@@ -7,7 +7,11 @@ Builds qwen2.5-3b at full width (random weights from a seed), one
 Replica (32 slots, 2048 positions, 256-token prefill chunks) holding 16
 sessions of 128-1024 prompt tokens, then traces with ``torch.profiler``:
 5 fused decode rounds (a bucket of 16), then 3 prefill chunks of one
-more admit.  Then one D1HT ``simulate_churn`` of the §VII churn cell
+more admit.  Then falcon-mamba-7b at full width (random weights from a
+seed), one Replica (16 slots) holding 8 sessions of 128-1024 prompt
+tokens: one whole-prompt admit of 1024 tokens (its scans in K6), after a
+warm-up admit, then 3 fused lockstep decode rounds.  Then one D1HT
+``simulate_churn`` of the §VII churn cell
 (n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
 one warm-up run: its host-side event stream (also timed alone) and
 draws, K4 and the device metering.  Prints
@@ -98,6 +102,28 @@ def main() -> int:
                                                  dtype=np.int32)))
     rep.advance_prefills()               # warm-up chunk
     _window("prefill_chunk_256", rep.advance_prefills, 3)
+    del rep, params, model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("falcon-mamba-7b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    rep = Replica(model, slots=16, max_len=2048, device=dev)
+    rep.attach_params(params)
+    for i, n in enumerate(rng.choice([128, 256, 512, 1024], size=8)):
+        rep.admit(Request(f"ssm-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                   dtype=np.int32)))
+    late = iter(Request(f"late-{i}", rng.integers(0, cfg.vocab, 1024,
+                                                  dtype=np.int32))
+                for i in range(2))
+    rep.admit(next(late))                # warm-up: a 1024-token scan
+    _window("ssm_admit_1024", lambda: rep.admit(next(late)), 1)
+    for _ in range(2):                   # warm-up rounds
+        rep.decode_round(route=route)
+    _window("ssm_fused_decode_round_b16", lambda: rep.decode_round(route=route),
+            3)
+    del rep, params, model
+    torch.cuda.empty_cache()
     cell = ChurnConfig(n=10**6, s_avg=174 * 60, duration=1800.0,
                        warmup=300.0, seed=1)
     simulate_churn(cell, device=dev)     # warm-up: CUDA module loading

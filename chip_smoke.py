@@ -8,11 +8,15 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
 
   device   nvidia-smi's name and power limit, torch/CUDA versions, the
            kernel build time and ptxas' register report;
-  kernels  K1 (ring_lookup64), K2 (ring_lookup_bucketed) and K3
-           (decode_attention) at the main path's shapes, each held
+  kernels  K1 (ring_lookup64), K2 (ring_lookup_bucketed), K3
+           (decode_attention), K5 (flash_attention: qwen2.5-3b's
+           1024-token admit, a ragged 1000, a non-causal Sq != Sk, and
+           f32) and K6 (ssm_scan at a falcon-mamba-7b admit's shape on
+           random f32 inputs) at the main path's shapes, each held
            against its plain PyTorch version on the same inputs (K1/K2
-           exactly, K3 within BF16_ATOL), with kernel, plain, library
-           and bound times;
+           exactly, K3 within BF16_ATOL, K5 within 2e-2 in bf16 and 2e-5
+           in f32, K6 within 1e-4), with kernel, plain, library and
+           bound times;
   route    a 10^6-peer RingState: owners of both lookup paths against a
            numpy bisect, a delta bucket upload after one EDRA batch of
            64 events, no upload across 100 unchanged lookups;
@@ -24,6 +28,19 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            every routed owner must be the router's, and the kernels'
            launch counters (zeroed just before) must show the path ran
            through K1, K2 and K3 (K3: 36 launches per replica round);
+           then one Replica without prefill chunks admits 8 of the
+           requests whole (K5: 36 launches an admit, finite logits) and
+           decodes 8 rounds; its first tokens and last-position logits
+           against the chunked path's are printed, not gated (the
+           chunked path rounds p to bf16, K5 keeps it in f32);
+  serve_ssm  falcon-mamba-7b at full width and depth (64 layers, d 4096,
+           d_inner 8192, state 16, random weights from the seed): K6 on
+           layer 0's own scan inputs for a 1024-token prompt (h_last
+           within 1e-4, bf16 y within 1e-2 of max |y|); two Membership
+           nodes, one Replica each (16 slots), 16 routed whole-prompt
+           admits of 128-1024 tokens, 16 lockstep rounds fused, then the
+           same unfused.  Fused and unfused tokens equal, owners the
+           router's, 64 K6 launches per admit, finite logits;
   churn    K4 (edra_tree) on one 2^21-pair batch at n ~ 10^6 in its three
            variants at the D1HT operating point of the cell, held
            against its plain version (integers exactly, ack within
@@ -80,6 +97,19 @@ K4_RTOL, K4_ATOL = 3e-5, 1e-3      # repro's kernel-vs-oracle ack tolerance
 # variant (unbuffered, buffered, early close)
 K4_OPS_PAIR, K4_OPS_LEVEL, K4_OPS_HOP = 20, 9, (21, 42, 99)
 LAT_SIZES = (800, 1600, 2400, 3200, 4000)    # Fig. 5's ring sizes
+# K5 (flash attention): (B, Sq, Sk, causal, dtype) at qwen2.5-3b's heads;
+# the first is the whole-prompt admit of a 1024-token prompt
+K5_CASES = [(1, 1024, 1024, True, "bfloat16"), (1, 1000, 1000, True, "bfloat16"),
+            (1, 512, 1024, False, "bfloat16"), (1, 1024, 1024, True, "float32")]
+K5_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # repro's (tests/test_kernels.py)
+K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
+K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
+K6_Y_REL = 1e-2                    # bf16 y: of max |y|
+# f32 operations K6 does per (position, channel, state): dt*A, exp, da*h,
+# (dt*x)*B, +, h*C, the reduction's add; and per (position, channel):
+# dt*x, D*x, +
+K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
+SSM_PROMPTS = (128, 256, 512, 1024)   # whole multiples of ssm_chunk 256
 
 
 def emit(obj) -> None:
@@ -120,6 +150,8 @@ def main() -> int:
     from repro_torch.kernels import backend, build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ring_lookup import ops as rl_ops
     from repro_torch.kernels.ring_lookup.ref import (ring_lookup64_ref,
                                                      ring_lookup_bucketed_ref,
@@ -276,8 +308,49 @@ def main() -> int:
         "tolerance": BF16_ATOL,
         **{key: main3[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "library_ms", "bound_ms", "bound_by")}}
+    k5_rows = []
+    for b, sq, sk, causal, dtype_name in K5_CASES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((b, sq, H, HD), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sk, HKV, HD), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, HKV, HD), generator=gen, device=dev).to(dtype)
+        got5 = fa_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        plain5 = flash_attention_ref(q, k, v, causal=causal)
+        err5 = float((got5.float() - plain5.float()).abs().max())
+        if not err5 <= K5_TOL[dtype_name]:
+            raise AssertionError(f"K5 at {(b, sq, sk, causal, dtype_name)}: "
+                                 f"max err {err5}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+        b5, by5 = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                        4 * b * H * HD * pairs,
+                        BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        k5_rows.append({
+            "B": b, "Sq": sq, "Sk": sk, "causal": causal, "dtype": dtype_name,
+            "max_abs_err": err5, "tolerance": K5_TOL[dtype_name],
+            "ms": cuda_ms(lambda i: fa_ops.flash_attention(q, k, v,
+                                                           causal=causal)),
+            "plain_ms": cuda_ms(lambda i: flash_attention_ref(
+                q, k, v, causal=causal)),
+            "library_ms": cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)),
+            "bound_ms": b5, "bound_by": by5})
+        del q, k, v, qt, kt, vt, got5, plain5
+    main5 = k5_rows[0]
+    results["K5"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+        "shape": f"B=1, S={main5['Sq']}, H={H}, Hkv={HKV}, hd={HD}, bf16, "
+                 "causal (qwen2.5-3b whole-prompt admit)",
+        **{key: main5[key] for key in ("max_abs_err", "tolerance", "ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")}}
+    k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
-          "K3": k3_rows})
+          "K3": k3_rows, "K5": k5_rows, "K6_f32": k6_f32})
 
     # -- route ---------------------------------------------------------------
     def owners_ok(keys_np):
@@ -417,18 +490,267 @@ def main() -> int:
           "launches": launches, "tokens_equal": True,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
+    results["K5"]["launches"] = whole_prompt_admits(
+        model, params, reqs[:8], fused[0], dev)
+
     del params, model, cache, logits
     torch.cuda.empty_cache()
     for key in ("K1", "K2", "K3"):
         results[key]["launches"] = launches[key]
+    results["K6"] = serve_ssm_phase(dev, rng)
     results["K4"], churn = churn_phase(dev)
     latency_phase(dev, churn)
     for key in results:
         results[key]["max_err"] = results[key]["max_abs_err"]
-    emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4")]})
+    emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
+                                           "K6")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:
+    """qwen2.5-3b admits whole prompts (``prefill_chunk=None``): the
+    prefill attention runs on K5, 36 launches an admit.  Returns K5's
+    launches in that run.  First tokens and last-position logits are
+    compared with the chunked path, which rounds p to bf16 where K5 keeps
+    it in f32: reported, not gated."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serve import Replica
+    cfg = model.cfg
+    rep = Replica(model, slots=len(reqs), max_len=2048, prefill_chunk=None,
+                   device=dev)
+    rep.attach_params(params)
+    fa_ops.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    firsts = {r.session_id: rep.admit(r) for r in reqs}
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    round_ms = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        rep.decode_round()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fa_ops.flash_attention.launches
+    if launches != cfg.num_layers * len(reqs):
+        raise AssertionError(f"K5 launched {launches} times for {len(reqs)} "
+                             "whole-prompt admits")
+    del rep
+    deltas, finite, scale = [], True, 0.0
+    for r in reqs:
+        tokens = torch.from_numpy(r.prompt).to(dev)[None]
+        whole, _ = model.prefill(params, {"tokens": tokens},
+                                 model.init_cache(1, 2048, device=dev))
+        n = len(r.prompt)
+        seg = np.zeros(256 * math.ceil(n / 256), np.int32)
+        seg[:n] = r.prompt
+        cache = model.init_cache(1, 2048, device=dev)
+        for off in range(0, seg.size, 256):
+            logits, cache = model.prefill_chunk(
+                params, torch.from_numpy(seg[off:off + 256]).to(dev)[None],
+                cache, off)
+        finite &= bool(torch.isfinite(whole).all())
+        deltas.append(float((whole[0] - logits[0, (n - 1) % 256]).abs().max()))
+        scale = max(scale, float(whole.abs().max()))
+        del cache, logits, whole
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("whole-prompt prefill logits not finite")
+    agree = sum(firsts[r.session_id] == chunked_streams[r.session_id][0]
+                for r in reqs)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    emit({"phase": "serve_whole_prompt", "model": cfg.name,
+          "admits": len(reqs), "prompt_tokens": prompt_tokens,
+          "prefill_tokens_per_s": prompt_tokens / prefill_s,
+          "decode_ms_per_round": float(np.mean(round_ms[1:])),
+          "k5_launches": launches,
+          "first_tokens_equal_to_chunked": f"{agree}/{len(reqs)}",
+          "last_logits_max_abs_diff_vs_chunked": max(deltas),
+          "last_logits_max_abs_diff_each": deltas,
+          "last_logits_max_abs": scale})
+    return launches
+
+
+def k6_random_inputs(dev, gen):
+    """K6 at the admit's shape on test_kernels.py's f32 distributions,
+    with a random initial state."""
+    import torch
+    bb, l, din, n = K6_SHAPE
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    return (rnd(bb, l, din, scale=0.1), rnd(bb, l, din, scale=0.1).abs(),
+            rnd(bb, l, n, scale=0.5), rnd(bb, l, n, scale=0.5),
+            -rnd(din, n).abs() - 0.1, torch.ones(din, device=dev),
+            rnd(bb, din, n, scale=0.1))
+
+
+def k6_check(dev, x, dt, B, C, A, D, h0=None) -> dict:
+    """K6 against its plain version on these inputs: h_last within
+    K6_ATOL; y within K6_ATOL in f32, within K6_Y_REL of max |y| in a
+    narrower type.  Times, and the bound from these inputs."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    y, h = ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)
+    torch.cuda.synchronize()
+    wy, wh = ssm_scan_ref(x, dt, B, C, A, D, h0)
+    err_y = float((y.float() - wy.float()).abs().max())
+    err_h = float((h - wh).abs().max())
+    y_max = float(wy.float().abs().max())
+    y_tol = K6_ATOL if x.dtype == torch.float32 else K6_Y_REL * y_max
+    if not (err_h <= K6_ATOL and err_y <= y_tol):
+        raise AssertionError(f"K6 ({x.dtype}): y err {err_y} (tol {y_tol}), "
+                             f"h err {err_h}")
+    bb, l, din = x.shape
+    n = A.shape[1]
+    ins = (x, dt, B, C, A, D) + (() if h0 is None else (h0,))
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + y.numel() * y.element_size() + h.numel() * 4
+    ops = bb * l * din * (K6_OPS_STATE * n + K6_OPS_CHANNEL)
+    b6, by6 = bound(nbytes, ops, FP32_FLOPS)
+    return {"shape": f"Bb={bb}, L={l}, Din={din}, N={n}, x {x.dtype}",
+            "max_abs_err": max(err_y, err_h), "y_max_abs_err": err_y,
+            "h_max_abs_err": err_h, "y_tolerance": y_tol,
+            "h_tolerance": K6_ATOL, "y_max_abs": y_max,
+            "exponentials": bb * l * din * n,
+            "ms": cuda_ms(lambda i: ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)),
+            "plain_ms": cuda_ms(lambda i: ssm_scan_ref(x, dt, B, C, A, D, h0),
+                                iters=3, warmup=1),
+            "library_ms": None, "bound_ms": b6, "bound_by": by6}
+
+
+def serve_ssm_phase(dev, rng) -> dict:
+    """falcon-mamba-7b at full width and depth (random weights from the
+    seed): K6 on the path's types from layer 0 of a real admit, then two
+    Membership nodes with one Replica each, 16 routed whole-prompt admits,
+    16 lockstep rounds fused, then the same unfused.  Returns K6's row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.runtime import Membership
+    from repro_torch.serve import Replica, Request, SessionRouter
+
+    cfg = get_config("falcon-mamba-7b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    # K6 on layer 0's own scan inputs for a 1024-token prompt
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, K6_SHAPE[1],
+                                           dtype=np.int32)).to(dev)[None]
+    lay = params["layers"]
+    lp0 = {k: t[0] for k, t in lay["mamba"].items()}
+    x0 = L.rms_norm(L.embed(params["embed"], prompt, cfg), lay["ln"][0],
+                    cfg.norm_eps)
+    xs, _, dt_v, Bc, Cc, A, _ = ssm.mamba1_scan_inputs(lp0, x0, cfg)
+    k6 = k6_check(dev, xs, dt_v, Bc, Cc, A, lp0["D"])
+    del prompt, x0, xs, dt_v, Bc, Cc, A
+
+    # these two nodes' arcs split the 16 sessions 7 / 9: one replica runs
+    # the bucketed round (a bucket of 8 of 16 slots), the other the full
+    # house (9 rounds up to 16)
+    mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+    for i in range(2):
+        mem.request_join(f"10.30.0.{i}", 9000)
+    router = SessionRouter(mem)
+    reqs = [Request(f"ssm-{i}", rng.integers(0, cfg.vocab, int(n),
+                                             dtype=np.int32), 16)
+            for i, n in enumerate(rng.choice(SSM_PROMPTS, size=16))]
+    owner_of = dict(zip([r.session_id for r in reqs],
+                        router.route([r.session_id for r in reqs])))
+    ssm_ops.ssm_scan.launches = rl_ops.ring_lookup_bucketed.launches = 0
+
+    def run(fused: bool):
+        reps = {}
+        for node in mem.members():
+            reps[node] = Replica(model, slots=16, max_len=2048, device=dev)
+            reps[node].attach_params(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = {r.session_id: [reps[owner_of[r.session_id]].admit(r)]
+                   for r in reqs}
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        replica_rounds, round_ms = 0, []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            for node, rep in reps.items():
+                if not rep.sessions:
+                    continue
+                route = mem.ring_state.device_bucket_table() if fused else None
+                for sid, tok in rep.decode_round(route=route).items():
+                    streams[sid].append(tok)
+                replica_rounds += 1
+                if fused and any(rep.routed_owners[s] != owner_of[s]
+                                 or owner_of[s] != node for s in rep.sessions):
+                    raise AssertionError("a fused SSM round routed off-owner")
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+        buckets = sorted(len(rep.sessions) for rep in reps.values())
+        del reps
+        torch.cuda.empty_cache()
+        return streams, prefill_s, round_ms, replica_rounds, buckets
+
+    fused = run(True)
+    k2_fused = rl_ops.ring_lookup_bucketed.launches
+    unfused = run(False)
+    launches = {"K6": ssm_ops.ssm_scan.launches,
+                "K2": rl_ops.ring_lookup_bucketed.launches}
+    if fused[0] != unfused[0]:
+        raise AssertionError("fused and unfused SSM token streams differ")
+    toks = np.array([t for s in fused[0].values() for t in s])
+    if toks.min() < 0 or toks.max() >= cfg.vocab \
+            or any(len(s) != 17 for s in fused[0].values()):
+        raise AssertionError("SSM tokens out of range or streams cut short")
+    if launches["K6"] != cfg.num_layers * 2 * len(reqs) \
+            or launches["K2"] != fused[3] or k2_fused != fused[3]:
+        raise AssertionError(f"SSM launch counts {launches} off the main path")
+    probe = reqs[0]
+    logits, _ = model.prefill(
+        params, {"tokens": torch.from_numpy(probe.prompt).to(dev)[None]},
+        model.init_cache(1, 2048, device=dev))
+    if not bool(torch.isfinite(logits).all()) \
+            or int(torch.argmax(logits[0])) != fused[0][probe.session_id][0]:
+        raise AssertionError("SSM prefill logits not finite / first token "
+                             "differs")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    emit({"phase": "serve_ssm", "model": cfg.name, "params": n_params,
+          "layers": cfg.num_layers, "d_inner": ssm.d_inner(cfg),
+          "state": cfg.ssm_state, "init_s": init_s,
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "sessions_per_replica": fused[4], "replica_rounds": fused[3],
+          "prompt_tokens": prompt_tokens,
+          "prefill_tokens_per_s": {"fused": prompt_tokens / fused[1],
+                                   "unfused": prompt_tokens / unfused[1]},
+          "decode_ms_per_round": {
+              "fused_mean": float(np.mean(fused[2][1:])),
+              "unfused_mean": float(np.mean(unfused[2][1:])),
+              "fused_first": fused[2][0]},
+          "launches": launches, "tokens_equal": True,
+          "k6_path": k6,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del params, model, logits
+    torch.cuda.empty_cache()
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:45",
+            "shape": k6["shape"] + " (layer 0 of a falcon-mamba-7b admit)",
+            "tolerance": {"h": K6_ATOL, "y": k6["y_tolerance"]},
+            "launches": launches["K6"],
+            **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "library_ms", "bound_ms", "bound_by")}}
 
 
 def k4_inputs(dev, seed: int):

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense configs it can serve.
+"""Architecture registry of the port: the configs it can serve (the dense
+and the Mamba-1 SSM families).
 
 Each entry provides the FULL config and a ``smoke()`` reduction of the
 same family (small depth/width/vocab) for CPU tests.
@@ -9,7 +10,7 @@ import importlib
 
 from .base import ModelConfig
 
-ARCH_IDS = ["qwen2.5-3b"]
+ARCH_IDS = ["qwen2.5-3b", "falcon-mamba-7b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

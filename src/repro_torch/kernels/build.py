@@ -41,6 +41,10 @@ SIGNATURES = {
     # inv_fill, delta, phase_key (a uint32: c_int would wrap >= 2^31), stream
     "edra_tree_launch": [_P] * 10 + [_L, _I, _I] + [_F] * 6
     + [ctypes.c_uint32, _P],
+    # q, k, v, out, B, Sq, Sk, H, Hkv, hd, causal, dtype, scale, stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    # x, dt, B, C, A, D, h0 (or 0), y, h_last, Bb, L, Din, N, dtype, stream
+    "ssm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

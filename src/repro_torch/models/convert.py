@@ -3,9 +3,10 @@
 ``params_from_jax`` takes ``jax.device_get(repro Model(cfg).init(key))``
 as a tree of numpy arrays and returns the port's parameters.  The port
 keeps ``repro``'s names, its ``(in, out)`` matrices and its stacked
-``layers`` axis (``repro/models/transformer.py``), so the mapping is the
+``layers`` axis (``repro/models/transformer.py`` for the dense family,
+``repro/models/hybrid.py`` for the SSM family), so the mapping is the
 identity on names and shapes; this is the one place that checks it.
-``init_params`` draws random weights on the device instead.
+``Model.init`` draws random weights on the device instead.
 """
 from __future__ import annotations
 
@@ -15,10 +16,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from . import hybrid, transformer
 from . import layers as L
-from .transformer import init_params, param_shapes
 
-__all__ = ["params_from_jax", "init_params"]
+__all__ = ["params_from_jax"]
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -41,4 +42,5 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         return torch.from_numpy(np.ascontiguousarray(
             arr.astype(np.float32))).to(device=device, dtype=dtype)
 
-    return walk(tree, param_shapes(cfg), "")
+    family = hybrid if cfg.family == "ssm" else transformer
+    return walk(tree, family.param_shapes(cfg), "")

@@ -6,8 +6,11 @@ cast back; attention scores are f32 from the working-dtype operands; the
 logits are f32.  Where XLA takes ``preferred_element_type=f32`` with
 bf16 operands, the port upcasts the operands to f32 (exact) and runs an
 f32 product, with TF32 off on the card (``kernels.backend.strict_fp32``).
-Prefill attention is plain torch here; decode attention goes through
-the K3 wrapper (CUDA kernel on the card, its plain version on the CPU).
+Whole-prompt prefill attention goes through the K5 wrapper and decode
+attention through the K3 wrapper (CUDA kernels on the card, their plain
+versions on the CPU); a continuation prefill chunk attends at a query
+offset that K5 does not take, so it stays plain torch, as ``repro``
+leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.ops import decode_attention as _decode_op
+from ..kernels.flash_attention.ops import flash_attention as _flash_op
 
 Params = Dict[str, Any]
 NEG = -1e30
@@ -68,45 +72,14 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         .reshape(b, s, h * groups, d)
 
 
-def _attn_block(q, k, v, m, l, acc, mask):
-    """One online-softmax step. q:(B,H,Cq,hd) k,v:(B,H,Ck,hd)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s * (1.0 / math.sqrt(q.shape[-1]))
-    s = torch.where(mask, s, NEG)
-    m_new = torch.maximum(m, s.amax(dim=-1))
-    p = torch.exp(s - m_new[..., None])
-    alpha = torch.exp(m - m_new)
-    l_new = l * alpha + p.sum(dim=-1)
-    acc_new = acc * alpha[..., None] + torch.einsum(
-        "bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return m_new, l_new, acc_new
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, chunk: int = 512) -> torch.Tensor:
-    """Plain online-softmax attention over kv chunks (``repro``'s "full"
-    path), for a prefill from cache position 0.
-    q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd)."""
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    qt = q.transpose(1, 2)                                  # (B,H,Sq,hd)
-    kt = _repeat_kv(k, h // hkv).transpose(1, 2)
-    vt = _repeat_kv(v, h // hkv).transpose(1, 2)
-    ck = min(chunk, sk)
-    q_pos = torch.arange(sq, device=q.device)
-    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, vt.shape[-1]), dtype=torch.float32,
-                      device=q.device)
-    for j0 in range(0, sk, ck):
-        kj, vj = kt[:, :, j0:j0 + ck], vt[:, :, j0:j0 + ck]
-        k_pos = j0 + torch.arange(kj.shape[2], device=q.device)
-        mask = torch.ones((sq, kj.shape[2]), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = q_pos[:, None] >= k_pos[None, :]
-        m, l, acc = _attn_block(qt, kj, vj, m, l, acc, mask[None, None])
-    out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return out.transpose(1, 2)
+                    causal: bool) -> torch.Tensor:
+    """Attention over a fresh segment (kernel K5), for a prefill from
+    cache position 0.  q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd).
+    Unlike ``repro``'s jnp path, p stays f32 for p . v, as in the TPU
+    kernel."""
+    return _flash_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=causal)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Model facade of the port (``repro.models.model.Model``), dense family.
+"""Model facade of the port (``repro.models.model.Model``): the dense
+family (``transformer``) and the Mamba-1 SSM family (``hybrid``).
 
     m = Model(cfg)
     params = m.init(generator, device=...)      # random weights on device
@@ -19,9 +20,23 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.backend import resolve_device, strict_fp32
-from . import convert, transformer
+from . import convert, hybrid, transformer
 
 Params = Dict[str, Any]
+
+
+def _module(cfg: ModelConfig):
+    """The family's module, as ``repro.models.model._module``; families
+    not ported yet raise."""
+    if cfg.family == "dense" and not cfg.moe_experts \
+            and not cfg.mla_kv_lora:
+        return transformer
+    if cfg.family == "ssm":
+        hybrid.require_ported(cfg)
+        return hybrid
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (dense and Mamba-1 ssm "
+        "only): ROADMAP queue 1, item 5")
 
 
 def _on(device) -> torch.device:
@@ -36,10 +51,7 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self) -> None:
-        c = self.cfg
-        if c.family != "dense" or c.moe_experts or c.mla_kv_lora:
-            raise NotImplementedError(
-                f"family {c.family!r} is not ported yet (dense only)")
+        _module(self.cfg)
 
     # -- parameters ----------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None, *,
@@ -48,7 +60,7 @@ class Model:
         dev = _on(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        return transformer.init_params(self.cfg, generator, dev)
+        return _module(self.cfg).init_params(self.cfg, generator, dev)
 
     def load(self, tree: Dict[str, Any], *, device=None) -> Params:
         """``repro``'s parameter tree, as numpy, onto the device."""
@@ -57,27 +69,35 @@ class Model:
     # -- serving ---------------------------------------------------------------
     @property
     def supports_per_slot_decode(self) -> bool:
-        """decode_step accepts a (B,) per-slot index tensor."""
-        return True
+        """decode_step accepts a (B,) per-slot index tensor (the dense
+        family; the SSM family decodes in lockstep)."""
+        return _module(self.cfg) is transformer
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """prefill_chunk can continue a prefill mid-cache."""
-        return True
+        """prefill_chunk can continue a prefill mid-cache (the dense
+        family; an SSM prefill is one whole-prompt scan)."""
+        return _module(self.cfg) is transformer
 
     def init_cache(self, batch: int, max_len: int, *, device=None):
-        return transformer.init_cache(self.cfg, batch, max_len, _on(device))
+        """Dense: the KV cache for ``max_len`` positions; SSM: the
+        recurrent state, whose size does not depend on ``max_len``."""
+        return _module(self.cfg).init_cache(self.cfg, batch, max_len,
+                                            _on(device))
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache) -> Tuple[torch.Tensor, Any]:
         """Process the prompt, filling the cache from position 0."""
-        return transformer.forward_with_cache(params, batch["tokens"], cache,
-                                              self.cfg, 0)
+        return _module(self.cfg).forward_with_cache(
+            params, batch["tokens"], cache, self.cfg, 0)
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache,
                       index: int) -> Tuple[torch.Tensor, Any]:
         """One fixed-shape prefill segment from cache position ``index``;
-        returns ALL-position logits (B, S, V)."""
+        returns ALL-position logits (B, S, V).  Dense family only."""
+        if not self.supports_chunked_prefill:
+            raise NotImplementedError(
+                f"family {self.cfg.family} has no chunked prefill")
         return transformer.forward_with_cache(params, tokens, cache, self.cfg,
                                               index, chunk=True)
 
@@ -85,6 +105,7 @@ class Model:
                     index) -> Tuple[torch.Tensor, Any]:
         """One token per sequence.  ``index`` is the current cache length:
         an int steps every row in lockstep; a (B,) tensor steps each slot
-        at its OWN position (each < max_len)."""
-        return transformer.forward_with_cache(params, tokens, cache, self.cfg,
-                                              index)
+        at its OWN position (each < max_len; only when
+        ``supports_per_slot_decode``)."""
+        return _module(self.cfg).forward_with_cache(params, tokens, cache,
+                                                    self.cfg, index)

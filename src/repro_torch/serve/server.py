@@ -5,7 +5,9 @@ local lookup) decides which serving replica owns the session's KV cache.
 ``SessionRouter`` resolves whole request batches on the device through
 ``RingState.lookup`` (kernels K1/K2).  Each ``Replica`` runs continuous
 batched decode over its slots: every active slot decodes at its OWN
-cache position, with decode attention in kernel K3.  A fused round runs
+cache position, with decode attention in kernel K3; a family without
+per-slot decode (the SSM family) steps its slots in lockstep and admits
+whole prompts, whose prefill scans in kernel K6.  A fused round runs
 the bucketed ring lookup (K2) on the batch's session keys next to the
 gather and decode, and reads the owners back with the tokens in one
 host transfer.
@@ -325,6 +327,11 @@ class Replica:
         lengths = torch.from_numpy(self.lengths).to(dev)
         key_hi = _words(self.key_hi).to(dev)
         key_lo = _words(self.key_lo).to(dev)
+        # lockstep families (SSM) step every row at the longest active
+        # session's length, as repro's ``_index``; padding rows keep
+        # state 0 and are dropped on the way back
+        lockstep = None if self.model.supports_per_slot_decode \
+            else int(self.lengths[act_idx].max())
         owners = None
         if bucket == self.slots:
             # full house: the gather would be the identity — step the
@@ -333,7 +340,8 @@ class Replica:
             if route is not None:
                 owners = ring_lookup_bucketed(key_hi, key_lo, *route)
             logits, self.cache = self.model.decode_step(
-                self.params, self.cache, tokens, lengths)
+                self.params, self.cache, tokens,
+                lengths if lockstep is None else lockstep)
             rows = act_idx
         else:
             # clamp the padding rows' index to a real slot, then zero
@@ -353,7 +361,8 @@ class Replica:
                 t[:, n:] = 0
             tok[n:] = 0
             ln[n:] = 0
-            logits, sub = self.model.decode_step(self.params, sub, tok, ln)
+            logits, sub = self.model.decode_step(
+                self.params, sub, tok, ln if lockstep is None else lockstep)
             real = at[:n]
             for name, c in self.cache.items():
                 c.index_copy_(1, real, sub[name][:, :n])

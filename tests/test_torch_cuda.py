@@ -1,4 +1,4 @@
-"""The port's kernels on the card, each held against its plain version,
+"""The port's kernels on the card (K1-K6), each held against its plain version,
 and the rule that a CUDA tensor never reaches a plain version.  Tests
 marked ``cuda`` skip without a card; this file imports no jax, so it
 runs on a machine that has only torch:
@@ -22,8 +22,14 @@ from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.edra_tree import kernel as et_kernel
 from repro_torch.kernels.edra_tree import ops as et_ops
 from repro_torch.kernels.edra_tree import ref as et_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ring_lookup import ops as rl_ops
 from repro_torch.kernels.ring_lookup import ref as rl_ref
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan import ref as ssm_ref
 from repro_torch.models import Model
 from repro_torch.runtime import Membership
 from repro_torch.serve import Replica, Request
@@ -144,6 +150,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     monkeypatch.setattr(rl_ops, "ring_lookup_bucketed_ref", refuse)
     monkeypatch.setattr(da_ops, "decode_attention_ref", refuse)
     monkeypatch.setattr(et_ops, "tree_math", refuse)
+    monkeypatch.setattr(fa_ops, "flash_attention_ref", refuse)
+    monkeypatch.setattr(ssm_ops, "ssm_scan_ref", refuse)
     ids, keys = _ring(3000, seed=2)
     state = RingState(ids, device=cuda)
     want = ids[np.searchsorted(ids, keys) % ids.size]
@@ -156,6 +164,143 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
                                                   device=cuda))
     simulate_churn(ChurnConfig(n=512, s_avg=174 * 60, duration=120,
                                warmup=30, seed=1), device=cuda)
+    fa_ops.flash_attention(q[:, None], kv, kv, causal=True)
+    x = torch.randn((1, 5, 8), device=cuda)
+    bc = torch.randn((1, 5, 4), device=cuda)
+    ssm_ops.ssm_scan(x, x.abs(), bc, bc, -torch.ones((8, 4), device=cuda),
+                     torch.ones(8, device=cuda))
+
+
+# K5 tolerances: repro's own (tests/test_kernels.py), kernel and plain
+# version both f32 inside
+K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", [
+    (1, 1024, 1024, 16, 2, 128, True),      # qwen2.5-3b's admit
+    (1, 1000, 1000, 16, 2, 128, True),      # ragged
+    (2, 300, 777, 8, 2, 64, False),         # Sq != Sk
+    (3, 77, 200, 4, 4, 16, True),           # Sq < Sk, top-left mask
+    (2, 128, 128, 4, 1, 32, True),
+])
+def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
+                                             hd, causal):
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + hd)
+    q = torch.randn((b, sq, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, sk, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, sk, hkv, hd), generator=g, device=cuda).to(dtype)
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=K5_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.randn((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q, q, causal=True)
+    q = torch.randn((1, 8, 3, 16), device=cuda)
+    with pytest.raises(ValueError, match="mismatched"):
+        fa_ops.flash_attention(q, q[:, :, :2].contiguous(),
+                               q[:, :, :2].contiguous(), causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2), q, q, causal=True)
+
+
+def _scan_inputs(bb, l, din, n, dtype, cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+    return (rnd(bb, l, din, scale=0.1).to(dtype),
+            rnd(bb, l, din, scale=0.1).abs(),
+            rnd(bb, l, n, scale=0.5).to(dtype),
+            rnd(bb, l, n, scale=0.5).to(dtype),
+            -rnd(din, n).abs() - 0.1,
+            torch.ones(din, device=cuda).to(dtype),
+            rnd(bb, din, n, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("bb,l,din,n", [
+    (1, 1024, 8192, 16),        # falcon-mamba-7b's admit
+    (2, 64, 256, 16), (1, 128, 512, 8), (3, 32, 256, 4),
+    (2, 37, 300, 5),            # ragged Din, N not a power of two
+    (1, 3, 40, 32),
+])
+def test_ssm_scan_kernel_equals_plain(cuda, dtype, with_h0, bb, l, din, n):
+    """h_last within repro's 1e-4 (f32 maths, one rounding per step in
+    both); y within 1e-4 in f32, and within 2 bf16 ulps in bf16."""
+    x, dt, B, C, A, D, h0 = _scan_inputs(bb, l, din, n, dtype, cuda,
+                                         seed=l * din + n)
+    h0 = h0 if with_h0 else None
+    before = ssm_ops.ssm_scan.launches
+    y, h = ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    wy, wh = ssm_ref.ssm_scan_ref(x, dt, B, C, A, D, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(h, wh, atol=1e-4, rtol=0)
+    atol = 1e-4 if dtype == torch.float32 else 2 ** -6 * max(
+        1.0, float(wy.float().abs().max()))
+    torch.testing.assert_close(y.float(), wy.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, B, C, A, D, h0 = _scan_inputs(1, 8, 16, 4, torch.bfloat16, cuda, 0)
+    with pytest.raises(ValueError, match="float32"):
+        ssm_ops.ssm_scan(x, dt.bfloat16(), B, C, A, D)
+    with pytest.raises(ValueError, match="share"):
+        ssm_ops.ssm_scan(x, dt, B.float(), C, A, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_ops.ssm_scan(x, dt, B, C, A.t().contiguous().t(), D)
+    wide = _scan_inputs(1, 8, 16, 33, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="N <= 32"):
+        ssm_ops.ssm_scan(*wide[:6])
+
+
+@pytest.mark.cuda
+def test_ssm_replica_on_the_card_matches_the_cpu(cuda):
+    """falcon-mamba-7b smoke() in f32, TF32 off: whole-prompt admits (K6)
+    and fused lockstep rounds on the card give the CPU replica's tokens
+    and owners."""
+    cfg = get_smoke_config("falcon-mamba-7b").with_overrides(dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (3, 20, 33)]
+    streams = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+        for i in range(4):
+            mem.request_join(f"10.2.0.{i}", 9000)
+        rep = Replica(model, slots=8, max_len=64, device=dev)
+        rep.attach_params(p)
+        before = ssm_ops.ssm_scan.launches
+        got = {f"s{i}": [rep.admit(Request(f"s{i}", pr))]
+               for i, pr in enumerate(prompts)}
+        if dev != "cpu":
+            assert ssm_ops.ssm_scan.launches == before + 3 * cfg.num_layers
+        owners = []
+        for _ in range(6):
+            for sid, tok in rep.decode_round(
+                    route=mem.ring_state.device_bucket_table()).items():
+                got[sid].append(tok)
+            owners.append(dict(rep.routed_owners))
+        streams[str(dev)] = (got, owners)
+    assert streams["cpu"] == streams[str(cuda)]
 
 
 EDRA_VARIANTS = [dict(theta=0.0), dict(theta=5.4947),
@@ -233,9 +378,10 @@ def _to(tree, device):
 
 
 @pytest.mark.cuda
-def test_replica_on_the_card_matches_the_cpu(cuda):
-    """f32 smoke model, TF32 off: fused rounds on the card give the CPU
-    replica's tokens and owners."""
+@pytest.mark.parametrize("chunk", [8, None])
+def test_replica_on_the_card_matches_the_cpu(cuda, chunk):
+    """f32 smoke model, TF32 off: chunked or whole-prompt (K5) admits and
+    fused rounds on the card give the CPU replica's tokens and owners."""
     cfg = get_smoke_config("qwen2.5-3b").with_overrides(dtype="float32")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -248,7 +394,8 @@ def test_replica_on_the_card_matches_the_cpu(cuda):
         mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
         for i in range(4):
             mem.request_join(f"10.2.0.{i}", 9000)
-        rep = Replica(model, slots=8, max_len=64, prefill_chunk=8, device=dev)
+        rep = Replica(model, slots=8, max_len=64, prefill_chunk=chunk,
+                      device=dev)
         rep.attach_params(p)
         got = {f"s{i}": [rep.admit(Request(f"s{i}", pr))]
                for i, pr in enumerate(prompts)}
@@ -269,9 +416,13 @@ def test_replica_on_the_card_matches_the_cpu(cuda):
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = Model(get_smoke_config("qwen2.5-3b"))
+    ssm = Model(get_smoke_config("falcon-mamba-7b"))
     for call in (lambda: model.init(),
                  lambda: model.init_cache(1, 8),
                  lambda: Replica(model, slots=2, max_len=8),
+                 lambda: ssm.init(),
+                 lambda: ssm.init_cache(1, 8),
+                 lambda: Replica(ssm, slots=2, max_len=8),
                  lambda: RingState([1, 2, 3]).device_bucket_table(),
                  lambda: simulate_churn(ChurnConfig(n=64, s_avg=600.0)),
                  lambda: Membership().ring_state.device_table()):
@@ -301,3 +452,18 @@ def test_launchers_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         et_kernel.edra_tree_cuda(cpu, cpu + 5, cpu, cpu.float(), cpu,
                                  levels=4, theta=1.0, delta_avg=0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.flash_attention(q[:, None], kv, kv, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_cuda(torch.zeros((1, 1, 2, 16)),
+                                       torch.zeros((1, 8, 1, 16)),
+                                       torch.zeros((1, 8, 1, 16)),
+                                       causal=True)
+    x, bc = torch.empty((1, 8, 4), device="meta"), \
+        torch.empty((1, 8, 2), device="meta")
+    a, d = torch.empty((4, 2), device="meta"), torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_ops.ssm_scan(x, x, bc, bc, a, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_kernel.ssm_scan_cuda(*(torch.zeros(t.shape)
+                                   for t in (x, x, bc, bc, a, d)))

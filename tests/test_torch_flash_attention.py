@@ -1,0 +1,132 @@
+"""K5's plain version (``repro_torch.kernels.flash_attention``) against
+repro's flash attention: the Pallas kernel in interpret mode at the
+shapes of ``tests/test_kernels.py``'s sweep (f32 within 2e-5, bf16
+within 2e-2), and the exact-softmax oracle ``attention_ref`` at ragged
+lengths the TPU kernel does not take.  Then the path K5 serves: a
+qwen2.5-3b smoke() whole-prompt admit (``prefill_chunk=None``) on the
+port's Replica gives repro's tokens."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as j_smoke
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models import Model as JModel
+from repro.serve import Replica as JReplica
+from repro.serve import Request as JRequest
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import Model
+from repro_torch.serve import Replica, Request
+
+# one intra-op thread: the suite runs in several worker processes, and
+# idle OpenMP threads spinning after each op would take their cores
+torch.set_num_threads(1)
+
+
+def _qkv(b, sq, sk, h, hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, hd)).astype(np.float32))
+
+
+def _port(q, k, v, causal, dtype=torch.float32):
+    t = [torch.from_numpy(np.array(a, np.float32)).to(dtype)
+         for a in (q, k, v)]
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(*t, causal=causal)
+    assert fa_ops.flash_attention.launches == before  # the CPU runs no kernel
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal,dtype", [
+    (2, 128, 128, 4, 2, 128, True, "float32"),
+    (1, 256, 256, 8, 8, 64, True, "float32"),
+    (2, 128, 256, 8, 2, 128, False, "float32"),
+    (1, 128, 128, 4, 1, 128, True, "bfloat16"),
+])
+def test_plain_matches_pallas_interpret(b, sq, sk, h, hkv, hd, causal, dtype):
+    q, k, v = _qkv(b, sq, sk, h, hkv, hd, seed=sq + sk + h)
+    jd = jnp.dtype(dtype)
+    want = flash_attention_pallas(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                                  jnp.asarray(v, jd), causal=causal,
+                                  interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        q, k, v = (np.asarray(jnp.asarray(a, jd).astype(jnp.float32))
+                   for a in (q, k, v))
+        got = _port(q, k, v, causal, torch.bfloat16)
+        tol = 2e-2
+    else:
+        got = _port(q, k, v, causal)
+        tol = 2e-5
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", [
+    (1, 200, 200, 4, 2, 32, True),      # ragged: crosses a 128 chunk
+    (2, 200, 200, 6, 3, 16, False),
+    (1, 70, 200, 4, 1, 64, False),      # Sq != Sk, no mask
+    (1, 1, 1, 2, 2, 16, True),
+])
+def test_plain_matches_exact_softmax_at_ragged_lengths(b, sq, sk, h, hkv, hd,
+                                                       causal):
+    q, k, v = _qkv(b, sq, sk, h, hkv, hd, seed=sq * sk)
+    want = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal))
+    np.testing.assert_allclose(_port(q, k, v, causal), want, atol=2e-5,
+                               rtol=0)
+
+
+def test_causal_mask_is_top_left_aligned():
+    """Sq < Sk: query i sees keys 0..i, as the TPU kernel's qpos >= kpos
+    (repro's jnp oracle aligns bottom-right, tril(k=Sk-Sq))."""
+    q, k, v = _qkv(1, 40, 100, 2, 1, 16, seed=3)
+    got = _port(q, k, v, True)
+    want = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k[:, :40]),
+                                    jnp.asarray(v[:, :40]), causal=True))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_whole_prompt_admit_matches_repro(fused):
+    """qwen2.5-3b smoke() in f32, prompts of 37-200 tokens admitted whole
+    (prefill attention through K5's plain version), then decode rounds:
+    the same first tokens and streams as repro's Replica, KV within
+    1e-4."""
+    from repro.runtime import Membership as JMembership
+    from repro_torch.runtime import Membership
+    jcfg = j_smoke("qwen2.5-3b").with_overrides(dtype="float32")
+    cfg = get_smoke_config("qwen2.5-3b").with_overrides(dtype="float32")
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(1))
+    m = Model(cfg)
+    j = JReplica(jm, slots=4, max_len=256, prefill_chunk=None)
+    j.attach_params(jp)
+    t = Replica(m, slots=4, max_len=256, prefill_chunk=None, device="cpu")
+    t.attach_params(m.load(jax.device_get(jp), device="cpu"))
+    jmem = JMembership(t_q=60.0, now=lambda: 0.0)
+    mem = Membership(t_q=60.0, now=lambda: 0.0, device="cpu")
+    for i in range(3):
+        jmem.request_join(f"10.4.0.{i}", 7000 + i)
+        mem.request_join(f"10.4.0.{i}", 7000 + i)
+    rng = np.random.default_rng(21)
+    for i, n in enumerate((200, 37, 129)):
+        prompt = rng.integers(0, cfg.vocab, n, dtype=np.int32)
+        assert t.admit(Request(f"w{i}", prompt)) \
+            == j.admit(JRequest(f"w{i}", prompt))
+    for _ in range(3):
+        jr = jmem.ring_state.device_bucket_table() if fused else None
+        tr = mem.ring_state.device_bucket_table() if fused else None
+        assert t.decode_round(route=tr) == j.decode_round(route=jr)
+        assert t.routed_owners == j.routed_owners
+    for name in ("k", "v"):
+        np.testing.assert_allclose(t.cache[name].numpy(),
+                                   np.asarray(j.cache[name]), atol=1e-4,
+                                   rtol=0)
