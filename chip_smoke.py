@@ -55,7 +55,23 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            at n = 800..4000 with route times from K1/K2 on the card and
            f' from the churn plane (600 s windows), and a model row at
            10^6 on the churn cell's f'; the Fig-5 shape is checked as
-           far as each row's measured regime allows.
+           far as each row's measured regime allows;
+  k7       K7 (ring_lookup, single-word) on the sorted uint32 high words of
+           the route phase's 10^6 peer ids (duplicates kept) and 2^20 keys
+           from a numpy seed: equal to its plain version and to numpy's
+           searchsorted(..., "left") % N, exactly; boundary keys (0,
+           2^32 - 1, every entry and its neighbours) on that table and on
+           tables of N = 1 and N = 7; an empty table raises LookupError;
+           kernel, plain, torch.searchsorted and bound times;
+  quickstart  ``repro_torch.quickstart``'s five steps on the card: step 5
+           makes exactly one K7 launch (counter zeroed just before), and
+           its indices equal the plain version's on the CPU;
+  des_twin the churn plane's oracle at repro's twin configurations
+           (tests/test_jax_sim.py): the message-level DES (``run_churn``,
+           host) against ``simulate_churn`` on the card (K4) for D1HT at
+           n = 1000 and 1h-Calot at n = 512: bandwidth ratio in [0.7, 1.4]
+           / [0.6, 1.5], one-hop fractions within 0.006 / 0.008, both
+           D1HT one-hop fractions >= 0.99.
 
 Then the kernel summary line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0.  Without a CUDA
@@ -110,6 +126,15 @@ K6_Y_REL = 1e-2                    # bf16 y: of max |y|
 # dt*x, D*x, +
 K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
 SSM_PROMPTS = (128, 256, 512, 1024)   # whole multiples of ssm_chunk 256
+K7_KEYS = 1 << 20
+# repro's DES <-> vectorized twin tests (tests/test_jax_sim.py): config,
+# bandwidth-ratio band, largest one-hop gap
+DES_TWIN = {
+    "d1ht": (dict(n=1000, s_avg=174 * 60, duration=600, warmup=120, seed=11),
+             (0.7, 1.4), 0.006),
+    "calot": (dict(n=512, s_avg=174 * 60, duration=600, warmup=120, seed=13,
+                   protocol="calot"), (0.6, 1.5), 0.008),
+}
 
 
 def emit(obj) -> None:
@@ -351,6 +376,7 @@ def main() -> int:
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
           "K3": k3_rows, "K5": k5_rows, "K6_f32": k6_f32})
+    results["K7"] = k7_phase(dev, ids)
 
     # -- route ---------------------------------------------------------------
     def owners_ok(keys_np):
@@ -500,10 +526,12 @@ def main() -> int:
     results["K6"] = serve_ssm_phase(dev, rng)
     results["K4"], churn = churn_phase(dev)
     latency_phase(dev, churn)
+    results["K7"]["launches"] = quickstart_phase(dev)
+    results["K4"]["launches"] += des_twin_phase(dev)
     for key in results:
         results[key]["max_err"] = results[key]["max_abs_err"]
     emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
-                                           "K6")]})
+                                           "K6", "K7")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -907,6 +935,149 @@ def latency_phase(dev, churn) -> None:
         slow = s["dserver"]["mean_ms"] / s["d1ht"]["mean_ms"]
         if r["sub_saturation"] and slow >= 1.5:
             raise AssertionError(f"n={r['n']}: dserver {slow:.2f}x D1HT")
+
+
+def k7_phase(dev, ids) -> dict:
+    """K7 on the sorted high words of the 10^6 peer ids against its plain
+    version and numpy, the boundary and small-table cases, the empty
+    table; times and bound.  Returns K7's row (launches set later, from
+    the quickstart's run)."""
+    import torch
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    from repro_torch.kernels.ring_lookup.ref import ring_lookup_ref
+
+    def dev_words(words):
+        return torch.from_numpy(np.ascontiguousarray(words, np.uint32)
+                                .view(np.int32)).to(dev)
+
+    def check(keys_np, table_np, what):
+        kt, tt = dev_words(keys_np), dev_words(table_np)
+        got = rl_ops.ring_lookup(kt, tt)
+        torch.cuda.synchronize()
+        plain = ring_lookup_ref(kt, tt)
+        want = np.searchsorted(table_np, keys_np, side="left") % table_np.size
+        err = int((got.long() - plain.long()).abs().max()) if got.numel() else 0
+        if err or not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"K7 {what}: disagrees with its plain "
+                                 "version / numpy")
+        return kt, tt, err
+
+    table = np.sort((ids >> np.uint64(32)).astype(np.uint32))
+    n = table.size
+    keys = np.random.default_rng(SEED + 7).integers(0, 2**32, K7_KEYS,
+                                                    dtype=np.uint32)
+    kt, tt, err = check(keys, table, f"Q={K7_KEYS}, N={n}")
+    small = {"N=1": table[:1], "N=7": table[::n // 7][:7],
+             "N=7 with duplicates": np.sort(np.repeat(table[:3], 3)[:7])}
+    boundary = {}
+    for what, tbl in [("N=10^6", table)] + list(small.items()):
+        ends = np.array([0, 2**32 - 1], np.uint32)
+        bkeys = np.concatenate([tbl, tbl + np.uint32(1), tbl - np.uint32(1),
+                                ends]).astype(np.uint32)
+        err = max(err, check(bkeys, tbl, f"boundary keys, {what}")[2])
+        boundary[what] = int(bkeys.size)
+    try:
+        rl_ops.ring_lookup(kt[:4], tt[:0])
+    except LookupError:
+        pass
+    else:
+        raise AssertionError("K7 took an empty table")
+    table64 = tt.long() & 0xFFFFFFFF
+    keys64 = kt.long() & 0xFFFFFFFF
+    b7, by7 = bound(K7_KEYS * 8 + n * 4,
+                    K7_KEYS * (math.ceil(math.log2(n)) + 1) * 3, FP32_FLOPS)
+    row = {"name": "ring_lookup", "route": "cuda",
+           "source": "src/repro_torch/csrc/ring_lookup.cu",
+           "replaces": "src/repro/kernels/ring_lookup/kernel.py:60",
+           "shape": f"Q={K7_KEYS}, N={n} (high words of the 10^6 peer ids)",
+           "max_abs_err": err, "tolerance": 0,
+           "ms": cuda_ms(lambda i: rl_ops.ring_lookup(kt, tt)),
+           "plain_ms": cuda_ms(lambda i: ring_lookup_ref(kt, tt)),
+           "library_ms": cuda_ms(
+               lambda i: torch.searchsorted(table64, keys64) % n),
+           "bound_ms": b7, "bound_by": by7}
+    emit({"phase": "k7", **row,
+          "duplicate_words": int(n - np.unique(table).size),
+          "boundary_keys": boundary, "empty_table": "LookupError"})
+    return row
+
+
+def quickstart_phase(dev) -> int:
+    """``repro_torch.quickstart`` on the card: one K7 launch in step 5,
+    whose indices equal the plain version's on the CPU.  Returns K7's
+    launches in that run."""
+    import torch
+    from repro_torch import quickstart
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    from repro_torch.kernels.ring_lookup.ref import ring_lookup_ref
+
+    lines = []
+    rl_ops.ring_lookup.launches = 0
+    t0 = time.perf_counter()
+    res = quickstart.run(dev, out=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rl_ops.ring_lookup.launches
+    plain = ring_lookup_ref(torch.from_numpy(res["keys"].view(np.int32)),
+                            torch.from_numpy(res["table"].view(np.int32)))
+    idx = res["idx"].cpu()
+    emit({"phase": "quickstart", "lines": lines, "k7_launches": launches,
+          "first5": idx[:5].tolist(), "first5_plain": plain[:5].tolist(),
+          "wall_s": wall})
+    if launches != 1:
+        raise AssertionError(f"quickstart step 5 made {launches} K7 launches")
+    if not torch.equal(idx, plain):
+        raise AssertionError("quickstart step 5 differs from the plain version")
+    return launches
+
+
+def des_twin_phase(dev) -> int:
+    """The message-level DES (host) against ``simulate_churn`` on the card
+    at repro's twin configurations, within repro's twin tolerances.
+    Returns K4's launches in the two card runs."""
+    import torch
+    from repro_torch.core.churn import ChurnConfig
+    from repro_torch.core.sim import simulate_churn
+    from repro_torch.dht import run_churn
+    from repro_torch.kernels.edra_tree import ops as et_ops
+
+    k4 = 0
+    for proto, (kw, (lo, hi), gap) in DES_TWIN.items():
+        cfg = ChurnConfig(**kw)
+        t0 = time.perf_counter()
+        des = run_churn(cfg)
+        des_s = time.perf_counter() - t0
+        et_ops.edra_tree.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vec = simulate_churn(cfg, device=dev)
+        torch.cuda.synchronize()
+        vec_s = time.perf_counter() - t0
+        launches = et_ops.edra_tree.launches
+        k4 += launches
+        ratio = vec.mean_out_bps / des.mean_out_bps
+        one_hop_gap = abs(vec.one_hop_fraction - des.one_hop_fraction)
+        emit({"phase": "des_twin", "protocol": proto, "n": cfg.n,
+              "des_wall_s": des_s, "des_events": des.events,
+              "des_mean_out_bps": des.mean_out_bps,
+              "des_ratio_sim_over_model": des.mean_out_bps / des.analytical_bps,
+              "des_one_hop": des.one_hop_fraction,
+              "card_wall_s": vec_s, "card_events": vec.events,
+              "card_mean_out_bps": vec.mean_out_bps,
+              "card_one_hop": vec.one_hop_fraction,
+              "analytical_bps": des.analytical_bps,
+              "card_over_des_bps": ratio, "one_hop_gap": one_hop_gap,
+              "band": [lo, hi], "max_one_hop_gap": gap, "k4_launches": launches})
+        if not launches:
+            raise AssertionError(f"des_twin {proto}: simulate_churn made no "
+                                 "K4 launch")
+        if not lo <= ratio <= hi or one_hop_gap > gap:
+            raise AssertionError(f"des_twin {proto}: DES {des.summary()} "
+                                 f"against the card {vec.summary()}")
+        if proto == "d1ht" and min(des.one_hop_fraction,
+                                   vec.one_hop_fraction) < 0.99:
+            raise AssertionError("des_twin d1ht: one-hop below 0.99")
+    return k4
 
 
 def _device():

@@ -6,13 +6,13 @@ the vectorized simulators (``sim``, the counterpart of ``jax_sim``)."""
 from .churn import ChurnConfig, ChurnResult, SessionDist
 from .edra import Event, EventBuffer, dissemination_tree
 from .quarantine import QuarantineManager
-from .ring import RoutingTable, hash_id, key_id, peer_id
+from .ring import RoutingTable, build_ring, hash_id, key_id, peer_id
 from .ringstate import OwnerDiff, RingState
 from .sim import SimConfig, SimResult, simulate, simulate_churn
 from .tuning import EdraParams
 
 __all__ = ["ChurnConfig", "ChurnResult", "SessionDist",
            "Event", "EventBuffer", "dissemination_tree", "QuarantineManager",
-           "RoutingTable", "hash_id", "key_id", "peer_id", "OwnerDiff",
-           "RingState", "SimConfig", "SimResult", "simulate",
+           "RoutingTable", "build_ring", "hash_id", "key_id", "peer_id",
+           "OwnerDiff", "RingState", "SimConfig", "SimResult", "simulate",
            "simulate_churn", "EdraParams"]

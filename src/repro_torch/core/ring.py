@@ -36,6 +36,20 @@ def key_id(key: bytes | str) -> int:
     return hash_id(key)
 
 
+def ring_distance(a: int, b: int) -> int:
+    """Clockwise distance from a to b on the ring."""
+    return (b - a) % RING_SIZE
+
+
+def in_interval(x: int, lo: int, hi: int, *, inclusive_hi: bool = True) -> bool:
+    """True iff x ∈ (lo, hi] (or (lo, hi)) walking clockwise on the ring."""
+    d_x = ring_distance(lo, x)
+    d_hi = ring_distance(lo, hi)
+    if d_x == 0:
+        return False
+    return d_x <= d_hi if inclusive_hi else d_x < d_hi
+
+
 class RoutingTable:
     """A full routing table: the sorted set of all known peer IDs.
 
@@ -102,3 +116,18 @@ class RoutingTable:
 
     def owner(self, key: bytes | str) -> int:
         return self.state.successor_of(key_id(key))
+
+
+def build_ring(num_peers: int, *, seed: int = 0) -> RoutingTable:
+    """Deterministic ring of ``num_peers`` synthetic peers (10.x.x.x IPs)."""
+    ids = []
+    i = 0
+    seen = set()
+    while len(ids) < num_peers:
+        ip = f"10.{(seed + i) >> 16 & 255}.{(seed + i) >> 8 & 255}.{(seed + i) & 255}"
+        pid = peer_id(ip, port=1000 + ((seed + i) >> 24))
+        if pid not in seen:
+            seen.add(pid)
+            ids.append(pid)
+        i += 1
+    return RoutingTable(ids)

@@ -1,9 +1,11 @@
-// Ring lookup kernels for Hopper (sm_90a): K1 (flat) and K2 (bucketed).
+// Ring lookup kernels for Hopper (sm_90a): K1 (flat), K2 (bucketed) and
+// K7 (single-word).
 //
-// Both take 64-bit ring ids as (hi, lo) uint32 word pairs.  PyTorch hands
-// the words over as int32 tensors that carry the uint32 bit patterns; the
-// kernels read them as uint32_t and compare the recombined uint64 values,
-// which is exactly the lexicographic (hi, lo) order of the TPU kernels.
+// K1 and K2 take 64-bit ring ids as (hi, lo) uint32 word pairs.  PyTorch
+// hands the words over as int32 tensors that carry the uint32 bit
+// patterns; the kernels read them as uint32_t and compare the recombined
+// uint64 values, which is exactly the lexicographic (hi, lo) order of the
+// TPU kernels.  K7 reads its single words the same way.
 //
 // K1 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup64_pallas.
 //   The TPU kernel counts table entries < key with an O(n) broadcast
@@ -24,6 +26,19 @@
 //   then writes row[count]: the owner id.  Bound on this card: bytes — one
 //   1 KiB row pair per key plus the keys and owners; the directory is sized
 //   to fit L2 (kernels/backend.py::bucket_budget_bytes), so rows hit L2.
+//
+// K7 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup_pallas.
+//   bisect_left(table, key) % N over a sorted (N,) uint32 table, which may
+//   hold duplicates (the count is of strict "less than", so a run of equal
+//   words gives its first index).  The TPU kernel pads keys and table to
+//   its tiles and runs an O(N) compare-and-count per key on the vector
+//   lanes.  Here, as in K1, one thread per key runs a branchless lower
+//   bound over the N words: no padding, any Q and N >= 1, threads past Q
+//   return.  N is a launch argument (the table's length is its shape).
+//   Bound on this card: bytes — keys and output 4 B a key each, the table
+//   4 B a word once; a 10^6-word table (4 MB) stays in L2, so the
+//   log2(N) dependent probes per key are L2 hits, hidden by 2^20 keys in
+//   flight.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +50,22 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint64_t id64(uint32_t hi, uint32_t lo) {
   return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// Branchless lower bound over n >= 1 sorted entries, where below(j) says
+// whether entry j is < the key: returns the count of entries < the key
+// (the first index of a run of equal entries, i.e. bisect_left).
+template <typename Below>
+__device__ __forceinline__ int32_t count_below(int32_t n, Below below) {
+  int32_t base = 0;
+  int32_t len = n;
+  while (len > 1) {
+    const int32_t half = len >> 1;
+    const int32_t mid = base + half;
+    base = below(mid) ? mid : base;
+    len -= half;
+  }
+  return base + below(base);
 }
 
 __global__ void ring_lookup64_kernel(const uint32_t* __restrict__ keys_hi,
@@ -51,17 +82,19 @@ __global__ void ring_lookup64_kernel(const uint32_t* __restrict__ keys_hi,
     return;
   }
   const uint64_t key = id64(keys_hi[i], keys_lo[i]);
-  // branchless lower bound: after the loop, base is the last entry < key
-  // (or the first entry), and the count is base + [table[base] < key]
-  int32_t base = 0;
-  int32_t len = n;
-  while (len > 1) {
-    const int32_t half = len >> 1;
-    const int32_t mid = base + half;
-    base = id64(table_hi[mid], table_lo[mid]) < key ? mid : base;
-    len -= half;
-  }
-  const int32_t count = base + (id64(table_hi[base], table_lo[base]) < key);
+  const int32_t count = count_below(
+      n, [&](int32_t j) { return id64(table_hi[j], table_lo[j]) < key; });
+  out[i] = count == n ? 0 : count;
+}
+
+__global__ void ring_lookup32_kernel(const uint32_t* __restrict__ keys,
+                                     const uint32_t* __restrict__ table,
+                                     int32_t* __restrict__ out, int64_t q,
+                                     int32_t n) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= q) return;
+  const uint32_t key = keys[i];
+  const int32_t count = count_below(n, [&](int32_t j) { return table[j] < key; });
   out[i] = count == n ? 0 : count;
 }
 
@@ -109,6 +142,16 @@ extern "C" int ring_lookup64_launch(const void* keys_hi, const void* keys_lo,
       static_cast<const uint32_t*>(keys_hi), static_cast<const uint32_t*>(keys_lo),
       static_cast<const uint32_t*>(table_hi), static_cast<const uint32_t*>(table_lo),
       static_cast<const int32_t*>(n_live), static_cast<int32_t*>(out), q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ring_lookup_launch(const void* keys, const void* table, void* out,
+                                  int64_t q, int n, void* stream) {
+  const int64_t blocks = (q + kThreads - 1) / kThreads;
+  ring_lookup32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(table),
+      static_cast<int32_t*>(out), q, n);
   return static_cast<int>(cudaGetLastError());
 }
 

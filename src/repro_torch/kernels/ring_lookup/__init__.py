@@ -1,1 +1,1 @@
-"""Ring lookup kernels: K1 (flat) and K2 (bucketed)."""
+"""Ring lookup kernels: K1 (flat), K2 (bucketed) and K7 (single-word)."""

@@ -1,7 +1,8 @@
 """Launchers of the CUDA ring-lookup kernels (``csrc/ring_lookup.cu``).
 
-K1 ``ring_lookup64_cuda`` replaces ``ring_lookup64_pallas`` and K2
+K1 ``ring_lookup64_cuda`` replaces ``ring_lookup64_pallas``, K2
 ``ring_lookup_bucketed_cuda`` replaces ``ring_lookup_bucketed_pallas``
+and K7 ``ring_lookup_cuda`` replaces ``ring_lookup_pallas``
 (``repro/kernels/ring_lookup/kernel.py``); the design notes sit in the
 CUDA source.  Outputs are allocated here with ``torch.empty``; the
 kernels launch on the current stream and do not synchronise.
@@ -22,6 +23,23 @@ def _check(name: str, *tensors: torch.Tensor) -> torch.device:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous int32 tensors")
     return dev
+
+
+def ring_lookup_cuda(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(Q,) key words, (N,) sorted table words (uint32 bit patterns in
+    int32, 1 <= N < 2^31) -> (Q,) int32 ``bisect_left % N``."""
+    dev = _check("ring_lookup", keys, table)
+    q, n = keys.numel(), table.numel()
+    if keys.dim() != 1 or table.dim() != 1 or not 0 < n < 2**31:
+        raise ValueError(f"ring_lookup: expects (Q,) keys and an (N,) table "
+                         f"with 1 <= N < 2^31, got {tuple(keys.shape)}, "
+                         f"{tuple(table.shape)}")
+    out = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        build.launch("ring_lookup_launch", keys.data_ptr(), table.data_ptr(),
+                     out.data_ptr(), q, n,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    return out
 
 
 def ring_lookup64_cuda(keys_hi: torch.Tensor, keys_lo: torch.Tensor,

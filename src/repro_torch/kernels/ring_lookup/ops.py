@@ -6,8 +6,25 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import ring_lookup64_cuda, ring_lookup_bucketed_cuda
-from .ref import ring_lookup64_ref, ring_lookup_bucketed_ref
+from .kernel import (ring_lookup64_cuda, ring_lookup_bucketed_cuda,
+                     ring_lookup_cuda)
+from .ref import ring_lookup64_ref, ring_lookup_bucketed_ref, ring_lookup_ref
+
+
+def ring_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Single-word successor lookup (K7): (Q,) keys and a sorted (N,)
+    table, uint32 bit patterns in int32 tensors, -> (Q,) int32
+    ``bisect_left(table, key) % N``.  Raises ``LookupError`` on an empty
+    table before any device work.  A signed int32 table is not a
+    supported input: the words are compared as uint32."""
+    if table.numel() == 0:
+        raise LookupError("empty routing table")
+    if keys.device.type == "cpu":
+        return ring_lookup_ref(keys, table)
+    out = ring_lookup_cuda(keys, table)
+    if out.numel():
+        ring_lookup.launches += 1
+    return out
 
 
 def ring_lookup64(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
@@ -36,5 +53,6 @@ def ring_lookup_bucketed(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
     return out
 
 
+ring_lookup.launches = 0
 ring_lookup64.launches = 0
 ring_lookup_bucketed.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the ring lookups (K1, K2).
+"""Plain PyTorch versions of the ring lookups (K1, K2, K7).
 
 successor index of key k in a sorted ring table = bisect_left(table, k)
 mod n (the first peer clockwise from the key; wraps to index 0 past the
@@ -22,6 +22,14 @@ def sortable_ids(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """(hi, lo) uint32 words -> int64 whose SIGNED order is the uint64
     order of the ids: flip the top bit, then two's-complement wrap."""
     return ((_u32(hi) ^ 0x80000000) << 32) | _u32(lo)
+
+
+def ring_lookup_ref(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(Q,) key words, (N,) sorted table words, both uint32 bit patterns
+    in int32 tensors -> (Q,) int32 ``bisect_left(table, key) % N``.  A
+    table sorted as signed int32 is not a supported input."""
+    count = torch.searchsorted(_u32(table), _u32(keys), side="left")
+    return (count % table.shape[0]).to(torch.int32)
 
 
 def ring_lookup64_ref(keys_hi: torch.Tensor, keys_lo: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The port's kernels on the card (K1-K6), each held against its plain version,
+"""The port's kernels on the card (K1-K7), each held against its plain version,
 and the rule that a CUDA tensor never reaches a plain version.  Tests
 marked ``cuda`` skip without a card; this file imports no jax, so it
 runs on a machine that has only torch:
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import quickstart
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.churn import ChurnConfig
 from repro_torch.core.ringstate import RingState
@@ -25,6 +26,7 @@ from repro_torch.kernels.edra_tree import ref as et_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ring_lookup import kernel as rl_kernel
 from repro_torch.kernels.ring_lookup import ops as rl_ops
 from repro_torch.kernels.ring_lookup import ref as rl_ref
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
@@ -105,6 +107,61 @@ def test_ring_lookup_bucketed_kernel_equals_plain(cuda, n):
         ids[np.searchsorted(ids, keys) % ids.size])
 
 
+def _k7_case(n, dups, seed=0):
+    """A sorted uint32 table of n words (the high words of random 64-bit
+    ids, with runs of repeated words when ``dups``) and keys: random
+    words, every entry and its neighbours, and both ends of the range."""
+    rng = np.random.default_rng(seed)
+    table = (rng.integers(0, 2**64, size=n, dtype=np.uint64)
+             >> np.uint64(32)).astype(np.uint32)
+    if dups:
+        table[: n // 2] = np.repeat(table[: n // 8 + 1], 4)[: n // 2]
+    table = np.sort(table)
+    keys = np.concatenate([rng.integers(0, 2**32, size=65536, dtype=np.uint32),
+                           table, table + 1, table - 1,
+                           np.array([0, 2**32 - 1], np.uint32)]
+                          ).astype(np.uint32)
+    return table, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dups", [(1, False), (7, False), (7, True),
+                                    (1000, False), (4096, True),
+                                    (1_000_000, True)])
+def test_ring_lookup_kernel_equals_plain(cuda, n, dups):
+    table, keys = _k7_case(n, dups)
+    kt = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    tt = torch.from_numpy(table.view(np.int32)).to(cuda)
+    before = rl_ops.ring_lookup.launches
+    got = rl_ops.ring_lookup(kt, tt)
+    torch.cuda.synchronize()
+    assert rl_ops.ring_lookup.launches == before + 1
+    assert torch.equal(got, rl_ref.ring_lookup_ref(kt, tt))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), np.searchsorted(table, keys, side="left") % n)
+
+
+@pytest.mark.cuda
+def test_ring_lookup_kernel_refuses_what_it_does_not_take(cuda):
+    words = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        rl_kernel.ring_lookup_cuda(words, words.long())
+    with pytest.raises(ValueError):
+        rl_kernel.ring_lookup_cuda(words, words.view(2, 4))
+    with pytest.raises(LookupError, match="empty routing table"):
+        rl_ops.ring_lookup(words, words[:0])
+    assert rl_ops.ring_lookup(words[:0], words).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_quickstart_on_the_card_matches_the_cpu(cuda):
+    before = rl_ops.ring_lookup.launches
+    card = quickstart.run(cuda, out=lambda line: None)
+    assert rl_ops.ring_lookup.launches == before + 1
+    host = quickstart.run("cpu", out=lambda line: None)
+    assert torch.equal(card["idx"].cpu(), host["idx"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,hd,s", [
@@ -146,6 +203,7 @@ def test_decode_attention_length_zero_is_mean_of_v(cuda):
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(rl_ops, "ring_lookup_ref", refuse)
     monkeypatch.setattr(rl_ops, "ring_lookup64_ref", refuse)
     monkeypatch.setattr(rl_ops, "ring_lookup_bucketed_ref", refuse)
     monkeypatch.setattr(da_ops, "decode_attention_ref", refuse)
@@ -162,6 +220,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     kv = torch.randn((1, 8, 1, 16), device=cuda)
     da_ops.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32,
                                                   device=cuda))
+    table, keys = _k7_case(1000, True)
+    rl_ops.ring_lookup(torch.from_numpy(keys.view(np.int32)).to(cuda),
+                       torch.from_numpy(table.view(np.int32)).to(cuda))
     simulate_churn(ChurnConfig(n=512, s_avg=174 * 60, duration=120,
                                warmup=30, seed=1), device=cuda)
     fa_ops.flash_attention(q[:, None], kv, kv, causal=True)
@@ -425,9 +486,22 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
                  lambda: Replica(ssm, slots=2, max_len=8),
                  lambda: RingState([1, 2, 3]).device_bucket_table(),
                  lambda: simulate_churn(ChurnConfig(n=64, s_avg=600.0)),
-                 lambda: Membership().ring_state.device_table()):
+                 lambda: Membership().ring_state.device_table(),
+                 lambda: quickstart.run(out=lambda line: None)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
+
+
+def test_ring_lookup_refuses_non_cuda_tensors_and_empty_tables():
+    meta = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        rl_ops.ring_lookup(meta, meta)
+    cpu = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        rl_kernel.ring_lookup_cuda(cpu, cpu)
+    for keys in (meta, cpu):
+        with pytest.raises(LookupError, match="empty routing table"):
+            rl_ops.ring_lookup(keys, keys[:0])
 
 
 def test_launchers_refuse_non_cuda_tensors():
