@@ -7,10 +7,13 @@ Builds qwen2.5-3b at full width (random weights from a seed), one
 Replica (32 slots, 2048 positions, 256-token prefill chunks) holding 16
 sessions of 128-1024 prompt tokens, then traces with ``torch.profiler``:
 5 fused decode rounds (a bucket of 16), then 3 prefill chunks of one
-more admit.  Then falcon-mamba-7b at full width (random weights from a
-seed), one Replica (16 slots) holding 8 sessions of 128-1024 prompt
-tokens: one whole-prompt admit of 1024 tokens (its scans in K6), after a
-warm-up admit, then 3 fused lockstep decode rounds.  Then one D1HT
+more admit, then one whole-prompt admit of 1024 tokens on a Replica
+without prefill chunks (its attention on K5; the window reports K5's
+share of the device time), after a warm-up admit.  Then falcon-mamba-7b
+at full width (random weights from a seed), one Replica (16 slots)
+holding 8 sessions of 128-1024 prompt tokens: one whole-prompt admit of
+1024 tokens (its scans in K6), after a warm-up admit, then 3 fused
+lockstep decode rounds.  Then one D1HT
 ``simulate_churn`` of the §VII churn cell
 (n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
 one warm-up run: its host-side event stream (also timed alone) and
@@ -44,7 +47,7 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _window(label: str, fn, steps: int, **extra) -> None:
+def _window(label: str, fn, steps: int, share_of: str = "", **extra) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -59,6 +62,11 @@ def _window(label: str, fn, steps: int, **extra) -> None:
     top = [{"op": r.key, "calls": r.count,
             "device_ms": r.self_device_time_total / 1e3 / steps}
            for r in rows[:TOP] if r.self_device_time_total > 0]
+    if share_of:        # the device time of the ops whose name holds it
+        ms = sum(r.self_device_time_total for r in rows
+                 if share_of in r.key) / 1e3 / steps
+        extra["share"] = {"ops_matching": share_of, "device_ms": ms,
+                          "of_busy": ms * steps / busy if busy else None}
     print(json.dumps({"window": label, "steps": steps,
                       "wall_ms_per_step": wall / steps,
                       "device_busy_ms_per_step": busy / steps,
@@ -102,7 +110,17 @@ def main() -> int:
                                                  dtype=np.int32)))
     rep.advance_prefills()               # warm-up chunk
     _window("prefill_chunk_256", rep.advance_prefills, 3)
-    del rep, params, model
+    del rep
+    whole = Replica(model, slots=2, max_len=2048, prefill_chunk=None,
+                    device=dev)
+    whole.attach_params(params)
+    admits = iter(Request(f"whole-{i}", rng.integers(0, cfg.vocab, 1024,
+                                                     dtype=np.int32))
+                  for i in range(2))
+    whole.admit(next(admits))            # warm-up: a whole 1024-token admit
+    _window("whole_prompt_admit_1024", lambda: whole.admit(next(admits)), 1,
+            share_of="flash_")
+    del whole, params, model
     torch.cuda.empty_cache()
 
     cfg = get_config("falcon-mamba-7b")

@@ -7,16 +7,20 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` into the
 gitignored ``build/`` and runs, in order, printing one JSON line each:
 
   device   nvidia-smi's name and power limit, torch/CUDA versions, the
-           kernel build time and ptxas' register report;
+           kernel build time, ptxas' register report, and the HGMMA count
+           of each tensor-core K5 function in the library's SASS
+           (``cuobjdump -sass``; none there fails the run);
   kernels  K1 (ring_lookup64), K2 (ring_lookup_bucketed), K3
            (decode_attention), K5 (flash_attention: qwen2.5-3b's
-           1024-token admit, a ragged 1000, a non-causal Sq != Sk, and
-           f32) and K6 (ssm_scan at a falcon-mamba-7b admit's shape on
-           random f32 inputs) at the main path's shapes, each held
-           against its plain PyTorch version on the same inputs (K1/K2
-           exactly, K3 within BF16_ATOL, K5 within 2e-2 in bf16 and 2e-5
-           in f32, K6 within 1e-4), with kernel, plain, library and
-           bound times;
+           1024-token admit in bf16 and fp16, a ragged 1000, a non-causal
+           Sq != Sk, and f32; each case's route, tensor cores or SIMT, is
+           checked against ``kernel.route``) and K6 (ssm_scan at a
+           falcon-mamba-7b admit's shape on random f32 inputs) at the main
+           path's shapes, each held against its plain PyTorch version on
+           the same inputs (K1/K2 exactly, K3 within BF16_ATOL, K5 within
+           2e-2 in bf16 and fp16 and 2e-5 in f32, K6 within 1e-4), with
+           kernel, plain, library and bound times; K1, K2, K3, K5 and K7
+           are timed in turns with their library call (``in_turns``);
   route    a 10^6-peer RingState: owners of both lookup paths against a
            numpy bisect, a delta bucket upload after one EDRA batch of
            64 events, no upload across 100 unchanged lookups;
@@ -29,7 +33,8 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            launch counters (zeroed just before) must show the path ran
            through K1, K2 and K3 (K3: 36 launches per replica round);
            then one Replica without prefill chunks admits 8 of the
-           requests whole (K5: 36 launches an admit, finite logits) and
+           requests whole (K5: 36 launches an admit, all on the
+           tensor-core route, finite logits) and
            decodes 8 rounds; its first tokens and last-position logits
            against the chunked path's are printed, not gated (the
            chunked path rounds p to bf16, K5 keeps it in f32);
@@ -62,7 +67,7 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            searchsorted(..., "left") % N, exactly; boundary keys (0,
            2^32 - 1, every entry and its neighbours) on that table and on
            tables of N = 1 and N = 7; an empty table raises LookupError;
-           kernel, plain, torch.searchsorted and bound times;
+           kernel, plain, torch.searchsorted (in turns) and bound times;
   quickstart  ``repro_torch.quickstart``'s five steps on the card: step 5
            makes exactly one K7 launch (counter zeroed just before), and
            its indices equal the plain version's on the CPU;
@@ -116,8 +121,10 @@ LAT_SIZES = (800, 1600, 2400, 3200, 4000)    # Fig. 5's ring sizes
 # K5 (flash attention): (B, Sq, Sk, causal, dtype) at qwen2.5-3b's heads;
 # the first is the whole-prompt admit of a 1024-token prompt
 K5_CASES = [(1, 1024, 1024, True, "bfloat16"), (1, 1000, 1000, True, "bfloat16"),
-            (1, 512, 1024, False, "bfloat16"), (1, 1024, 1024, True, "float32")]
-K5_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # repro's (tests/test_kernels.py)
+            (1, 512, 1024, False, "bfloat16"), (1, 1024, 1024, True, "float16"),
+            (1, 1024, 1024, True, "float32")]
+# repro's (tests/test_kernels.py); fp16, finer than bf16, takes bf16's
+K5_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 2e-5}
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
 K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
 K6_Y_REL = 1e-2                    # bf16 y: of max |y|
@@ -158,6 +165,62 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def in_turns(kernel, library, rounds: int = 4, iters: int = 30) -> dict:
+    """A kernel and the library call that computes the same function,
+    timed in turns on one card: kernel, library, library, kernel, and so
+    on (``rounds`` pairs), each turn the CUDA-event mean of ``iters``
+    calls, after a warm-up of both.  Returns the means over the turns
+    (``ms``, ``library_ms``), their ratio and every turn's reading."""
+    for i in range(3):
+        kernel(i)
+        library(i)
+    turns = {"kernel": [], "library": []}
+    for r in range(rounds):
+        for who in (("kernel", "library") if r % 2 == 0
+                    else ("library", "kernel")):
+            turns[who].append(cuda_ms(kernel if who == "kernel" else library,
+                                      iters=iters, warmup=0))
+    ms = float(np.mean(turns["kernel"]))
+    lib = float(np.mean(turns["library"]))
+    return {"ms": ms, "library_ms": lib, "kernel_over_library": ms / lib,
+            "turns_ms": turns}
+
+
+def sass_hgmma(lib_path):
+    """HGMMA instructions in each tensor-core K5 function of the built
+    library's SASS (``cuobjdump -sass``, the toolkit's or the copy in
+    Triton's package), by (dtype, hd), and the first one's text; ``None``
+    where neither tool exists."""
+    import re
+    import subprocess
+    from repro_torch.kernels import build
+    tools = [Path(build._nvcc()).parent / "cuobjdump"]
+    try:
+        import triton
+        tools.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t.exists()), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn, first = {}, None, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = None
+            if "flash_tc_kernel" in name:
+                fn = ("bf16" if "bfloat16" in name else "fp16") + "/hd" \
+                    + re.search(r"Li(\d+)E", name).group(1)
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+            first = first or " ".join(line.split())
+    return {"hgmma_per_function": counts, "first_hgmma": first}
+
+
 def bound(nbytes: float, nops: float, peak: float):
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, nops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -175,6 +238,7 @@ def main() -> int:
     from repro_torch.kernels import backend, build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ring_lookup import ops as rl_ops
@@ -198,8 +262,12 @@ def main() -> int:
     build.library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    sass = sass_hgmma(build.library_path)
     emit({"phase": "device", **prov, "build_seconds": build.build_seconds,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass": sass})
+    counts = sass and sass["hgmma_per_function"]
+    if sass is not None and (len(counts) != 4 or not all(counts.values())):
+        raise AssertionError(f"tensor-core K5 without HGMMA: {sass}")
 
     # -- kernels -------------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -240,10 +308,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ring_lookup/kernel.py:123",
         "shape": f"Q={N_KEYS}, n={N_PEERS}, capacity={thi.numel()}",
         "max_abs_err": err1, "tolerance": 0,
-        "ms": cuda_ms(lambda i: rl_ops.ring_lookup64(khi, klo, thi, tlo, n_live)),
+        **in_turns(lambda i: rl_ops.ring_lookup64(khi, klo, thi, tlo, n_live),
+                   lambda i: torch.searchsorted(table64, keys64)),
         "plain_ms": cuda_ms(lambda i: ring_lookup64_ref(khi, klo, thi, tlo,
                                                         n_live)),
-        "library_ms": cuda_ms(lambda i: torch.searchsorted(table64, keys64)),
         "bound_ms": b1, "bound_by": by1}
 
     table = state.device_bucket_table()
@@ -277,10 +345,10 @@ def main() -> int:
         "shape": f"Q={N_KEYS}, buckets={stats['buckets']}x128, "
                  f"rows touched={rows}",
         "max_abs_err": err2, "tolerance": 0,
-        "ms": cuda_ms(lambda i: rl_ops.ring_lookup_bucketed(khi, klo, *table)),
+        **in_turns(lambda i: rl_ops.ring_lookup_bucketed(khi, klo, *table),
+                   library2),
         "plain_ms": cuda_ms(lambda i: ring_lookup_bucketed_ref(khi, klo,
                                                                *table)),
-        "library_ms": cuda_ms(library2),
         "bound_ms": b2, "bound_by": by2}
 
     k3_rows = []
@@ -313,13 +381,13 @@ def main() -> int:
                         4 * valid * H * HD, BF16_FLOPS)
         k3_rows.append({
             "B": b, "S": s, "max_abs_err": err3,
-            "ms": cuda_ms(lambda i: da_ops.decode_attention(
-                q[i % copies], k[i % copies], v[i % copies], length)),
+            **in_turns(lambda i: da_ops.decode_attention(
+                q[i % copies], k[i % copies], v[i % copies], length),
+                lambda i: sdpa(q[i % copies][:, :, None], kt[i % copies],
+                               vt[i % copies], attn_mask=mask,
+                               enable_gqa=True)),
             "plain_ms": cuda_ms(lambda i: decode_attention_ref(
                 q[i % copies], k[i % copies], v[i % copies], length)),
-            "library_ms": cuda_ms(lambda i: sdpa(
-                q[i % copies][:, :, None], kt[i % copies], vt[i % copies],
-                attn_mask=mask, enable_gqa=True)),
             "bound_ms": bb, "bound_by": by3})
         del q, k, v, kt, vt
     torch.cuda.empty_cache()
@@ -332,15 +400,21 @@ def main() -> int:
                  "bf16, lengths in [1, S]",
         "tolerance": BF16_ATOL,
         **{key: main3[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_by")}}
+                                       "library_ms", "kernel_over_library",
+                                       "bound_ms", "bound_by")}}
     k5_rows = []
     for b, sq, sk, causal, dtype_name in K5_CASES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, sq, H, HD), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, sk, HKV, HD), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, sk, HKV, HD), generator=gen, device=dev).to(dtype)
+        tc_before = fa_ops.flash_attention.tc_launches
         got5 = fa_ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        route5 = "tc" if fa_ops.flash_attention.tc_launches > tc_before \
+            else "simt"
+        if route5 != fa_kernel.route(dtype, HD):
+            raise AssertionError(f"K5 {dtype_name} took the {route5} route")
         plain5 = flash_attention_ref(q, k, v, causal=causal)
         err5 = float((got5.float() - plain5.float()).abs().max())
         if not err5 <= K5_TOL[dtype_name]:
@@ -351,16 +425,17 @@ def main() -> int:
         pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
         b5, by5 = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
                         4 * b * H * HD * pairs,
-                        BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                        FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k5_rows.append({
             "B": b, "Sq": sq, "Sk": sk, "causal": causal, "dtype": dtype_name,
+            "kernel_route": route5,
             "max_abs_err": err5, "tolerance": K5_TOL[dtype_name],
-            "ms": cuda_ms(lambda i: fa_ops.flash_attention(q, k, v,
-                                                           causal=causal)),
+            **in_turns(lambda i: fa_ops.flash_attention(q, k, v,
+                                                        causal=causal),
+                       lambda i: sdpa(qt, kt, vt, is_causal=causal,
+                                      enable_gqa=True)),
             "plain_ms": cuda_ms(lambda i: flash_attention_ref(
                 q, k, v, causal=causal)),
-            "library_ms": cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=causal,
-                                                 enable_gqa=True)),
             "bound_ms": b5, "bound_by": by5})
         del q, k, v, qt, kt, vt, got5, plain5
     main5 = k5_rows[0]
@@ -370,9 +445,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
         "shape": f"B=1, S={main5['Sq']}, H={H}, Hkv={HKV}, hd={HD}, bf16, "
                  "causal (qwen2.5-3b whole-prompt admit)",
-        **{key: main5[key] for key in ("max_abs_err", "tolerance", "ms",
-                                       "plain_ms", "library_ms", "bound_ms",
-                                       "bound_by")}}
+        **{key: main5[key] for key in ("kernel_route", "max_abs_err",
+                                       "tolerance", "ms", "plain_ms",
+                                       "library_ms", "kernel_over_library",
+                                       "bound_ms", "bound_by")}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
           "K3": k3_rows, "K5": k5_rows, "K6_f32": k6_f32})
@@ -550,7 +626,7 @@ def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:
     rep = Replica(model, slots=len(reqs), max_len=2048, prefill_chunk=None,
                    device=dev)
     rep.attach_params(params)
-    fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.tc_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     firsts = {r.session_id: rep.admit(r) for r in reqs}
@@ -563,9 +639,11 @@ def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:
         torch.cuda.synchronize()
         round_ms.append((time.perf_counter() - t0) * 1e3)
     launches = fa_ops.flash_attention.launches
-    if launches != cfg.num_layers * len(reqs):
-        raise AssertionError(f"K5 launched {launches} times for {len(reqs)} "
-                             "whole-prompt admits")
+    tc = fa_ops.flash_attention.tc_launches
+    if launches != cfg.num_layers * len(reqs) or tc != launches:
+        raise AssertionError(f"K5 launched {launches} times ({tc} on the "
+                             f"tensor cores) for {len(reqs)} whole-prompt "
+                             "admits")
     del rep
     deltas, finite, scale = [], True, 0.0
     for r in reqs:
@@ -594,7 +672,7 @@ def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:
           "admits": len(reqs), "prompt_tokens": prompt_tokens,
           "prefill_tokens_per_s": prompt_tokens / prefill_s,
           "decode_ms_per_round": float(np.mean(round_ms[1:])),
-          "k5_launches": launches,
+          "k5_launches": launches, "k5_tc_launches": tc,
           "first_tokens_equal_to_chunked": f"{agree}/{len(reqs)}",
           "last_logits_max_abs_diff_vs_chunked": max(deltas),
           "last_logits_max_abs_diff_each": deltas,
@@ -991,10 +1069,9 @@ def k7_phase(dev, ids) -> dict:
            "replaces": "src/repro/kernels/ring_lookup/kernel.py:60",
            "shape": f"Q={K7_KEYS}, N={n} (high words of the 10^6 peer ids)",
            "max_abs_err": err, "tolerance": 0,
-           "ms": cuda_ms(lambda i: rl_ops.ring_lookup(kt, tt)),
+           **in_turns(lambda i: rl_ops.ring_lookup(kt, tt),
+                      lambda i: torch.searchsorted(table64, keys64) % n),
            "plain_ms": cuda_ms(lambda i: ring_lookup_ref(kt, tt)),
-           "library_ms": cuda_ms(
-               lambda i: torch.searchsorted(table64, keys64) % n),
            "bound_ms": b7, "bound_by": by7}
     emit({"phase": "k7", **row,
           "duplicate_words": int(n - np.unique(table).size),

@@ -11,10 +11,11 @@
 // Bound on this card: at qwen2.5-3b's whole-prompt admit (B 1, S 1024,
 // H 16, Hkv 2, hd 128, bf16, causal) the work is 4.29 GFLOP (4.3 us at
 // the tensor cores' 989 TFLOP/s) against 9.4 MB (2.8 us), so operations
-// bind.  This first kernel runs on the f32 CUDA cores (67 TFLOP/s, so
-// >= 64 us), because p must stay in f32 for p . v; the tensor-core
-// version (wgmma for q k^T, whose bf16 products are exact in f32) is a
-// later step.  The design:
+// bind.  This kernel runs on the f32 CUDA cores (67 TFLOP/s, so >= 64 us)
+// and is K5's route for f32 inputs and for hd in {16, 32}: repro's f32
+// tolerance of 2e-5 is beyond TF32 or split-bf16 products.  bf16 and fp16
+// at hd 64 and 128 take the tensor-core kernel (flash_attention_tc.cu,
+// wgmma with p split into two 16-bit parts).  The design:
 //   * one block of 256 threads per (query tile of 64 rows, batch x head);
 //     the TPU kernel's sequential kv grid axis becomes a loop over kv
 //     tiles of 64 positions inside the block;

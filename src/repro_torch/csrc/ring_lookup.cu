@@ -9,14 +9,34 @@
 //
 // K1 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup64_pallas.
 //   The TPU kernel counts table entries < key with an O(n) broadcast
-//   compare, a choice for the VPU's lanes.  Here one thread per key runs a
-//   branchless lower-bound binary search over the n live entries: log2(n)
-//   dependent loads instead of n compares.  Bound on this card: the keys,
-//   the output and the live table are each touched once (bytes); the
-//   8 MiB table of a 10^6-peer ring stays resident in the 50 MB L2, so the
-//   random probes of the search are L2 hits, and 2^20 independent keys in
-//   flight hide their latency.  n is read from device memory, so a lookup
-//   never syncs the host on it.  Returns count % n, like the TPU kernel.
+//   compare, a choice for the VPU's lanes.  Here each key runs a lower
+//   bound in two levels.  Bound on this card: the keys, the output and the
+//   live table are each touched once (bytes, 6 us at Q 2^20, n 10^6); the
+//   8 MiB table stays resident in the 50 MB L2, so what a search costs is
+//   its L2 round trips: a one-level search over (hi, lo) words in two
+//   arrays 4 MB apart touches two 32-byte sectors on each of its ~21
+//   probes.  The design cuts those round trips:
+//   * a persistent grid (one block of 1024 threads an SM) walks the keys
+//     grid-stride; each block reads n, picks the stride s, the least power
+//     of two with n <= s * kSample, and loads entries 0, s, 2s, ... < n as
+//     packed uint64 into shared memory once (32 KB; s = 256 at n = 10^6).
+//     One block an SM measured faster than two: with half the threads in
+//     flight, a key's later segment probes more often find the 128-byte
+//     lines of its earlier ones still in L1;
+//   * a branchless lower bound over that sample, in shared memory, gives
+//     c, the count of samples below the key: the answer lies in
+//     [(c - 1) s + 1, min(c s, n)] (0 when c = 0);
+//   * a branchless lower bound over that segment of < s entries, in
+//     global memory (L2), gives the count.  It loads table_hi[mid] first and
+//     table_lo[mid] only on a tie of the high words, which random 64-bit
+//     ids make rare (keys equal to ids do tie), so a probe touches one
+//     sector, and the last three probes share one.  At n = 10^6 this is 12
+//     shared-memory probes and 8 L2 probes where the one-level search made
+//     21 probes of two sectors each.  At n <= kSample the sample is the
+//     whole table and the segment is empty.
+//   n is read from device memory, so a lookup never syncs the host on it,
+//   and membership churn never changes the launch.  Returns count % n,
+//   like the TPU kernel.
 //
 // K2 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup_bucketed_pallas.
 //   One warp per key: the bucket is the top R bits of hi; each lane loads 4
@@ -40,6 +60,7 @@
 //   log2(N) dependent probes per key are L2 hits, hidden by 2^20 keys in
 //   flight.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -47,6 +68,9 @@ namespace {
 
 constexpr int kRowWidth = 128;   // = RingState._BUCKET_ROW
 constexpr int kThreads = 256;
+constexpr int kSample = 4096;    // K1's splitter sample: 32 KB of uint64
+constexpr int kK1Threads = 1024;
+constexpr int kK1BlocksPerSM = 1;
 
 __device__ __forceinline__ uint64_t id64(uint32_t hi, uint32_t lo) {
   return (static_cast<uint64_t>(hi) << 32) | lo;
@@ -68,23 +92,47 @@ __device__ __forceinline__ int32_t count_below(int32_t n, Below below) {
   return base + below(base);
 }
 
-__global__ void ring_lookup64_kernel(const uint32_t* __restrict__ keys_hi,
-                                     const uint32_t* __restrict__ keys_lo,
-                                     const uint32_t* __restrict__ table_hi,
-                                     const uint32_t* __restrict__ table_lo,
-                                     const int32_t* __restrict__ n_live,
-                                     int32_t* __restrict__ out, int64_t q) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= q) return;
+__global__ void __launch_bounds__(kK1Threads, kK1BlocksPerSM)
+ring_lookup64_kernel(const uint32_t* __restrict__ keys_hi,
+                     const uint32_t* __restrict__ keys_lo,
+                     const uint32_t* __restrict__ table_hi,
+                     const uint32_t* __restrict__ table_lo,
+                     const int32_t* __restrict__ n_live,
+                     int32_t* __restrict__ out, int64_t q) {
+  __shared__ uint64_t sample[kSample];
+  const int64_t first = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int32_t n = *n_live;
   if (n <= 0) {            // RingState raises on an empty table first
-    out[i] = 0;
+    for (int64_t i = first; i < q; i += step) out[i] = 0;
     return;
   }
-  const uint64_t key = id64(keys_hi[i], keys_lo[i]);
-  const int32_t count = count_below(
-      n, [&](int32_t j) { return id64(table_hi[j], table_lo[j]) < key; });
-  out[i] = count == n ? 0 : count;
+  int shift = 0;           // s = 2^shift: the least power of two, n <= s * kSample
+  while ((static_cast<int64_t>(kSample) << shift) < n) ++shift;
+  const int32_t m = ((n - 1) >> shift) + 1;   // entries 0, s, 2s, ... < n
+  for (int32_t i = threadIdx.x; i < m; i += blockDim.x)
+    sample[i] = id64(table_hi[i << shift], table_lo[i << shift]);
+  __syncthreads();
+  for (int64_t i = first; i < q; i += step) {
+    const uint32_t kh = keys_hi[i];
+    const uint32_t kl = keys_lo[i];
+    const uint64_t key = id64(kh, kl);
+    const int32_t c = count_below(m, [&](int32_t j) { return sample[j] < key; });
+    int32_t count = 0;
+    if (c > 0) {           // sample c - 1 < key <= sample c (or c == m)
+      const int32_t lo = ((c - 1) << shift) + 1;
+      const int64_t end = static_cast<int64_t>(c) << shift;
+      const int32_t len = static_cast<int32_t>(end < n ? end : n) - lo;
+      const uint32_t* seg_hi = table_hi + lo;
+      const uint32_t* seg_lo = table_lo + lo;
+      count = lo + (len > 0 ? count_below(len, [&](int32_t j) {
+                                const uint32_t h = seg_hi[j];
+                                return h < kh || (h == kh && seg_lo[j] < kl);
+                              })
+                            : 0);
+    }
+    out[i] = count == n ? 0 : count;
+  }
 }
 
 __global__ void ring_lookup32_kernel(const uint32_t* __restrict__ keys,
@@ -136,8 +184,14 @@ extern "C" int ring_lookup64_launch(const void* keys_hi, const void* keys_lo,
                                     const void* table_hi, const void* table_lo,
                                     const void* n_live, void* out, int64_t q,
                                     void* stream) {
-  const int64_t blocks = (q + kThreads - 1) / kThreads;
-  ring_lookup64_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = std::min<int64_t>((q + kK1Threads - 1) / kK1Threads,
+                                           static_cast<int64_t>(sms) * kK1BlocksPerSM);
+  ring_lookup64_kernel<<<static_cast<unsigned>(blocks), kK1Threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys_hi), static_cast<const uint32_t*>(keys_lo),
       static_cast<const uint32_t*>(table_hi), static_cast<const uint32_t*>(table_lo),

@@ -45,6 +45,8 @@ SIGNATURES = {
     + [ctypes.c_uint32, _P],
     # q, k, v, out, B, Sq, Sk, H, Hkv, hd, causal, dtype, scale, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    # the same arguments (the tensor-core route)
+    "flash_attention_tc_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
     # x, dt, B, C, A, D, h0 (or 0), y, h_last, Bb, L, Din, N, dtype, stream
     "ssm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }
@@ -53,6 +55,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
 build_log = ""                           # nvcc's -Xptxas=-v report
+library_path: Optional[Path] = None      # the loaded shared library
 
 
 def _nvcc() -> str:
@@ -109,7 +112,7 @@ def _compile(target: Path) -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from ``csrc/`` on first use."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, library_path
     with _lock:
         if _lib is None:
             target = BUILD_DIR / f"libkernels-{_digest()}.so"
@@ -118,6 +121,7 @@ def library() -> ctypes.CDLL:
                 build_log = _compile(target)
             build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(target))
+            library_path = target
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

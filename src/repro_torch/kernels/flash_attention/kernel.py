@@ -1,9 +1,14 @@
-"""Launcher of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Launcher of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
+and ``csrc/flash_attention_tc.cu``).
 
 K5 ``flash_attention_cuda`` replaces ``flash_attention_pallas``
-(``repro/kernels/flash_attention/kernel.py``); the design notes sit in
-the CUDA source.  The output is allocated here with ``torch.empty``;
-the kernel launches on the current stream and does not synchronise.
+(``repro/kernels/flash_attention/kernel.py``) on two routes, picked from
+q's dtype and head dim alone before any launch (``route``): bf16 and fp16
+at hd 64 and 128 run on the tensor cores (wgmma, TMA), everything else
+(f32, hd 16 and 32) on the f32 SIMT kernel, whose 2e-5 tolerance the
+tensor cores cannot meet.  The design notes sit in the CUDA sources.  The
+output is allocated here with ``torch.empty``; the kernels launch on the
+current stream and do not synchronise.
 """
 from __future__ import annotations
 
@@ -14,8 +19,16 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel's instantiations
-BQ = 64                             # query rows per block (csrc kBQ)
+HEAD_DIMS = (16, 32, 64, 128)       # the SIMT kernel's instantiations
+TC_DTYPES = (torch.bfloat16, torch.float16)
+TC_HEAD_DIMS = (64, 128)            # the tensor-core kernel's
+BQ = 64                             # query rows per block (both kernels)
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """``"tc"`` (tensor cores) for bf16/fp16 at hd 64 or 128, else
+    ``"simt"``."""
+    return "tc" if dtype in TC_DTYPES and hd in TC_HEAD_DIMS else "simt"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,9 +58,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.numel() and k.numel()) or -(-sq // BQ) > 65535:
         raise ValueError(f"flash_attention: takes 1 <= Sq <= {65535 * BQ} "
                          f"and Sk >= 1, got {q.shape}, {k.shape}")
+    entry = "flash_attention_launch"
+    if route(q.dtype, hd) == "tc":
+        entry = "flash_attention_tc_launch"
+        if any(t.data_ptr() % 16 for t in (q, k, v)):   # TMA's base address
+            raise ValueError("flash_attention: the tensor-core route needs "
+                             "16-byte-aligned q, k and v")
     out = torch.empty_like(q)
-    build.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, sq, sk, h, hkv, hd,
-                 int(causal), _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+    build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), b, sq, sk, h, hkv, hd, int(causal),
+                 _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
                  torch.cuda.current_stream(dev).cuda_stream)
     return out

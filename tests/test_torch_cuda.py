@@ -73,11 +73,18 @@ def _ring(n, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 3, 2048, 100_000])
+# K1 samples every s-th of the n live entries, s the least power of two
+# with n <= s * 4096: n below, at and just above the sample size, n not a
+# multiple of s (12_345: s 4; 10^6: s 256), and a full table (n = the
+# device capacity 2^20); the keys hold every id (so every sampled id),
+# each id +- 1, 0 and 2^64 - 1
+@pytest.mark.parametrize("n", [1, 3, 2048, 4095, 4096, 4097, 12_345, 100_000,
+                               1_000_000, 1 << 20])
 def test_ring_lookup64_kernel_equals_plain(cuda, n):
     ids, keys = _ring(n)
     state = RingState(ids, device=cuda)
     thi, tlo, live = state.device_table()
+    assert n < 1 << 20 or thi.numel() == n
     khi, klo = _words(keys, cuda)
     before = rl_ops.ring_lookup64.launches
     got = rl_ops.ring_lookup64(khi, klo, thi, tlo, live)
@@ -233,18 +240,25 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 
 
 # K5 tolerances: repro's own (tests/test_kernels.py), kernel and plain
-# version both f32 inside
-K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# version both f32 inside; fp16 (finer than bf16) takes bf16's
+K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", [
-    (1, 1024, 1024, 16, 2, 128, True),      # qwen2.5-3b's admit
+    (1, 1024, 1024, 16, 2, 128, True),      # qwen2.5-3b's admit (g 8)
     (1, 1000, 1000, 16, 2, 128, True),      # ragged
     (2, 300, 777, 8, 2, 64, False),         # Sq != Sk
     (3, 77, 200, 4, 4, 16, True),           # Sq < Sk, top-left mask
     (2, 128, 128, 4, 1, 32, True),
+    (1, 1, 1, 2, 2, 128, True),             # one query, g 1
+    (2, 63, 63, 4, 2, 64, True),            # g 2, one ragged tile
+    (1, 65, 65, 8, 1, 128, True),           # g 8, a 1-row second tile
+    (2, 1024, 512, 8, 1, 64, True),         # Sk < Sq, causal
+    (1, 65, 200, 4, 2, 128, False),         # Sq != Sk, no mask
+    (2, 1000, 63, 2, 2, 64, False),         # one ragged kv tile
 ])
 def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
                                              hd, causal):
@@ -252,10 +266,14 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
     q = torch.randn((b, sq, h, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, sk, hkv, hd), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, sk, hkv, hd), generator=g, device=cuda).to(dtype)
-    before = fa_ops.flash_attention.launches
+    tc = dtype != torch.float32 and hd in (64, 128)
+    assert fa_kernel.route(dtype, hd) == ("tc" if tc else "simt")
+    fn = fa_ops.flash_attention
+    before = fn.launches, fn.tc_launches, fn.simt_launches
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention.launches == before + 1
+    assert (fn.launches, fn.tc_launches, fn.simt_launches) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
     want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=K5_TOL[dtype],
@@ -273,6 +291,15 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
                                q[:, :, :2].contiguous(), causal=True)
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_attention(q.transpose(1, 2), q, q, causal=True)
+    # TMA reads from a 16-byte-aligned base: a view one element in is refused
+    buf = torch.randn(2 * 8 * 2 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = buf[1:].view(2, 8, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    kv = buf[:-1].view(2, 8, 2, 64)
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa_ops.flash_attention(q, kv, kv, causal=True)
+    assert fa_ops.flash_attention.launches == before
 
 
 def _scan_inputs(bb, l, din, n, dtype, cuda, seed):

@@ -2,9 +2,11 @@
 repro's flash attention: the Pallas kernel in interpret mode at the
 shapes of ``tests/test_kernels.py``'s sweep (f32 within 2e-5, bf16
 within 2e-2), and the exact-softmax oracle ``attention_ref`` at ragged
-lengths the TPU kernel does not take.  Then the path K5 serves: a
-qwen2.5-3b smoke() whole-prompt admit (``prefill_chunk=None``) on the
-port's Replica gives repro's tokens."""
+lengths the TPU kernel does not take.  The tensor-core route's recipe
+(q k^T of 16-bit values, p split into two 16-bit parts for p . v),
+emulated in torch, against the Pallas kernel and against f32 p.  Then the
+path K5 serves: a qwen2.5-3b smoke() whole-prompt admit
+(``prefill_chunk=None``) on the port's Replica gives repro's tokens."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +94,86 @@ def test_causal_mask_is_top_left_aligned():
     want = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k[:, :40]),
                                     jnp.asarray(v[:, :40]), causal=True))
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def _tc_recipe(q, k, v, causal, dtype, split=True):
+    """K5's tensor-core route (``csrc/flash_attention_tc.cu``) emulated on
+    the CPU: q k^T of 16-bit values summed in f32 (their products are
+    exact in f32), an online softmax over kv tiles of 64 in f32, p split
+    into p_hi = dtype(p) and p_lo = dtype(p - p_hi) (or, with
+    ``split=False``, rounded once to dtype), p_hi v + p_lo v summed in f32,
+    l from the f32 p.  Returns the f32 output before its final rounding."""
+    q, k, v = (torch.from_numpy(np.asarray(a, np.float32)).to(dtype).float()
+               for a in (q, k, v))
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, hd)
+    q_pos = torch.arange(sq)
+    m = torch.full((b, hkv, h // hkv, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, h // hkv, sq, hd))
+    for j0 in range(0, sk, 64):
+        kj, vj = k[:, j0:j0 + 64], v[:, j0:j0 + 64]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj) / np.sqrt(hd)
+        if causal:
+            k_pos = j0 + torch.arange(kj.shape[1])
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        p_hi = p.to(dtype).float()
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p_hi, vj)
+        if split:
+            p_lo = (p - p_hi).to(dtype).float()
+            pv = pv + torch.einsum("bkgqs,bskd->bkgqd", p_lo, vj)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+# qwen2.5-3b smoke()'s heads (4 / 2, hd 16), and the tensor-core route's
+# head dims 64 and 128 at small Sq / Sk (multiples of the Pallas kernel's
+# 128-wide blocks)
+TC_CASES = [(1, 128, 128, 4, 2, 16, True), (2, 128, 256, 4, 2, 64, False),
+            (1, 256, 256, 4, 1, 128, True)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", TC_CASES)
+def test_tensor_core_recipe_matches_pallas_interpret(b, sq, sk, h, hkv, hd,
+                                                     causal):
+    """The split-p recipe in bf16, rounded to bf16 as the kernel's output
+    is, against repro's Pallas kernel in interpret mode within repro's
+    bf16 tolerance 2e-2."""
+    q, k, v = _qkv(b, sq, sk, h, hkv, hd, seed=sq + sk + hd)
+    want = flash_attention_pallas(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal,
+        interpret=True)
+    got = _tc_recipe(q, k, v, causal, torch.bfloat16).to(torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", TC_CASES)
+def test_tensor_core_recipe_keeps_p_at_f32(dtype, b, sq, sk, h, hkv, hd,
+                                           causal):
+    """Before the final rounding, the split-p recipe is within 1e-3 of
+    max |out| of the plain version, which keeps p in f32, on the same
+    16-bit inputs; p rounded once to the 16-bit type is at least ten times
+    further off."""
+    q, k, v = _qkv(b, sq, sk, h, hkv, hd, seed=sq * sk + hd)
+    want = fa_ops.flash_attention(
+        *(torch.from_numpy(a).to(dtype).float() for a in (q, k, v)),
+        causal=causal)
+    scale = float(want.abs().max())
+    split = float((_tc_recipe(q, k, v, causal, dtype) - want).abs().max())
+    rounded = float((_tc_recipe(q, k, v, causal, dtype, split=False)
+                     - want).abs().max())
+    assert split <= 1e-3 * scale
+    assert split * 10 <= rounded
 
 
 @pytest.mark.parametrize("fused", [True, False])
