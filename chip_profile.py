@@ -7,7 +7,9 @@ Builds qwen2.5-3b at full width (random weights from a seed), one
 Replica (32 slots, 2048 positions, 256-token prefill chunks) holding 16
 sessions of 128-1024 prompt tokens, then traces with ``torch.profiler``:
 5 fused decode rounds (a bucket of 16), then 3 prefill chunks of one
-more admit, then one whole-prompt admit of 1024 tokens on a Replica
+more admit, then, with the replica filled to its 32 slots, 5 fused
+rounds of the full house (both decode windows report K3's share of the
+device time), then one whole-prompt admit of 1024 tokens on a Replica
 without prefill chunks (its attention on K5; the window reports K5's
 share of the device time), after a warm-up admit.  Then falcon-mamba-7b
 at full width (random weights from a seed), one Replica (16 slots)
@@ -105,11 +107,22 @@ def main() -> int:
     route = mem.ring_state.device_bucket_table()
     for _ in range(2):                   # warm-up: allocator, cuBLAS plans
         rep.decode_round(route=route)
-    _window("fused_decode_round_b16", lambda: rep.decode_round(route=route), 5)
+    _window("fused_decode_round_b16", lambda: rep.decode_round(route=route), 5,
+            share_of="decode_")
     rep.begin_admit(Request("late", rng.integers(0, cfg.vocab, 1024,
                                                  dtype=np.int32)))
     rep.advance_prefills()               # warm-up chunk
     _window("prefill_chunk_256", rep.advance_prefills, 3)
+    while "late" not in rep.sessions:   # the late admit's last chunks
+        rep.advance_prefills()
+    for i, n in enumerate(rng.integers(128, 1025, size=32 - len(rep.sessions))):
+        rep.admit(Request(f"more-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                    dtype=np.int32)))
+    assert len(rep.sessions) == 32
+    for _ in range(2):                   # warm-up of the full house
+        rep.decode_round(route=route)
+    _window("fused_decode_round_b32", lambda: rep.decode_round(route=route), 5,
+            share_of="decode_")
     del rep
     whole = Replica(model, slots=2, max_len=2048, prefill_chunk=None,
                     device=dev)

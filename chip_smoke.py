@@ -17,10 +17,17 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            checked against ``kernel.route``) and K6 (ssm_scan at a
            falcon-mamba-7b admit's shape on random f32 inputs) at the main
            path's shapes, each held against its plain PyTorch version on
-           the same inputs (K1/K2 exactly, K3 within BF16_ATOL, K5 within
-           2e-2 in bf16 and fp16 and 2e-5 in f32, K6 within 1e-4), with
-           kernel, plain, library and bound times; K1, K2, K3, K5 and K7
-           are timed in turns with their library call (``in_turns``);
+           the same inputs (K1/K2 exactly, also K2 at the fused round's 32
+           keys; K3 within 1.6e-2 in bf16 and fp16 on the tensor-core route
+           and 2e-5 in f32 on the SIMT one, each case's route checked
+           against ``kernel.route``; K5 within 2e-2 in bf16 and fp16 and
+           2e-5 in f32, K6 within 1e-4), with kernel, plain, library and
+           bound times; K1, K2, K3, K5 and K7 are timed in 8 rounds of
+           turns with their library call (``in_turns``: medians, and the
+           median and range of the rounds' ratios), K3's and K5's SDPA
+           pinned to its fastest backend for those inputs (the least
+           median of 5 readings in turns) and read unpinned beside it;
+           K2's bound counts each touched row's live prefix (``k2_bound``);
   route    a 10^6-peer RingState: owners of both lookup paths against a
            numpy bisect, a delta bucket upload after one EDRA batch of
            64 events, no upload across 100 unchanged lookups;
@@ -31,7 +38,8 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            schedule unfused.  Fused and unfused tokens must be equal,
            every routed owner must be the router's, and the kernels'
            launch counters (zeroed just before) must show the path ran
-           through K1, K2 and K3 (K3: 36 launches per replica round);
+           through K1, K2 and K3 (K3: 36 launches per replica round, all on
+           the tensor-core route);
            then one Replica without prefill chunks admits 8 of the
            requests whole (K5: 36 launches an admit, all on the
            tensor-core route, finite logits) and
@@ -104,8 +112,14 @@ N_PEERS = 1_000_000
 CAPACITY = 1 << 20                 # device table of 10^6 peers
 BUCKETS = 1 << 15                  # their directory under a 32 MiB budget
 N_KEYS = 1 << 20
-K3_SHAPES = [(1, 2048), (8, 2048), (16, 2048), (32, 2048), (32, 2000)]   # (B, S)
-K3_MAIN = (16, 2048)               # the largest decode bucket on the path
+# (B, S, dtype): bf16 and fp16 on the tensor-core route, f32 on the SIMT one
+K3_SHAPES = [(1, 2048, "bfloat16"), (8, 2048, "bfloat16"),
+             (16, 2048, "bfloat16"), (32, 2048, "bfloat16"),
+             (32, 2000, "bfloat16"), (16, 2048, "float16"),
+             (16, 2048, "float32")]
+K3_MAIN = (16, 2048, "bfloat16")   # the largest decode bucket on the path
+K3_TOL = {"bfloat16": BF16_ATOL, "float16": BF16_ATOL, "float32": 2e-5}
+K2_ROUND_KEYS = 32                 # the fused decode round's full house
 H, HKV, HD = 16, 2, 128            # qwen2.5-3b attention
 CHURN = dict(n=10**6, s_avg=174 * 60, duration=1800.0, warmup=300.0,
              seed=1)               # bench_maintenance.py --full, 10^6 row
@@ -165,12 +179,14 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def in_turns(kernel, library, rounds: int = 4, iters: int = 30) -> dict:
+def in_turns(kernel, library, rounds: int = 8, iters: int = 30) -> dict:
     """A kernel and the library call that computes the same function,
     timed in turns on one card: kernel, library, library, kernel, and so
     on (``rounds`` pairs), each turn the CUDA-event mean of ``iters``
-    calls, after a warm-up of both.  Returns the means over the turns
-    (``ms``, ``library_ms``), their ratio and every turn's reading."""
+    calls, after a warm-up of both.  Returns the medians over the turns
+    (``ms``, ``library_ms``), the median of the rounds' ratios (kernel
+    over library within a round: the rank of ROADMAP's queue) with their
+    min and max, and every turn's reading."""
     for i in range(3):
         kernel(i)
         library(i)
@@ -180,10 +196,58 @@ def in_turns(kernel, library, rounds: int = 4, iters: int = 30) -> dict:
                     else ("library", "kernel")):
             turns[who].append(cuda_ms(kernel if who == "kernel" else library,
                                       iters=iters, warmup=0))
-    ms = float(np.mean(turns["kernel"]))
-    lib = float(np.mean(turns["library"]))
-    return {"ms": ms, "library_ms": lib, "kernel_over_library": ms / lib,
+    ratios = [k / lib for k, lib in zip(turns["kernel"], turns["library"])]
+    return {"ms": float(np.median(turns["kernel"])),
+            "library_ms": float(np.median(turns["library"])),
+            "kernel_over_library": float(np.median(ratios)),
+            "ratio_min_max": [min(ratios), max(ratios)],
             "turns_ms": turns}
+
+
+def fastest_sdpa(call, rounds: int = 5, iters: int = 10):
+    """The SDPA backend to pin for ``call`` (a function of no arguments).
+    Each backend of ``torch.nn.attention.sdpa_kernel`` is tried once
+    outside any timing; those that accept the call are then read in turns
+    (``rounds`` rounds, the order reversed every other round, each reading
+    the CUDA-event mean of ``iters`` calls), and the one with the least
+    median is returned with every backend's median (None: refused)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    backends = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH)
+    usable = []
+    for backend in backends:
+        try:
+            with sdpa_kernel(backend):
+                call()
+            usable.append(backend)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    readings = {b: [] for b in usable}
+    for r in range(rounds):
+        for backend in (usable if r % 2 == 0 else usable[::-1]):
+            with sdpa_kernel(backend):
+                readings[backend].append(cuda_ms(lambda i: call(),
+                                                 iters=iters))
+    medians = {b: float(np.median(t)) for b, t in readings.items()}
+    best = min(medians, key=medians.get)
+    return best, {b.name: medians.get(b) for b in backends}
+
+
+def sdpa_in_turns(kernel, sdpa_call) -> dict:
+    """``in_turns`` against SDPA pinned to its fastest backend for these
+    inputs (the row names it), and beside it against SDPA left to choose
+    its own backend (``default_sdpa``)."""
+    from torch.nn.attention import sdpa_kernel
+    best, tried = fastest_sdpa(lambda: sdpa_call(0))
+    with sdpa_kernel(best):
+        row = in_turns(kernel, sdpa_call)
+    default = in_turns(kernel, sdpa_call)
+    return {**row, "library_call": f"SDPA ({best.name})",
+            "sdpa_backends_ms": tried,
+            "default_sdpa": {key: default[key] for key in (
+                "ms", "library_ms", "kernel_over_library", "ratio_min_max")}}
 
 
 def sass_hgmma(lib_path):
@@ -226,6 +290,24 @@ def bound(nbytes: float, nops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k2_bound(keys, occ):
+    """K2's bound for uint64 ``keys`` on a directory with row occupancies
+    ``occ``: each key's two words in and two words out (16 B), and each
+    touched row's occ once (4 B) and the slots the answer depends on once
+    (count <= occ[b] and the owner is row[count]: slots 0..occ[b] of the
+    hi and of the lo row, each rounded up to 32-byte sectors); operations,
+    a lower bound over those occ[b] + 1 slots per key, 3 a probe."""
+    bits = occ.size.bit_length() - 1
+    b = (keys >> np.uint64(64 - bits)).astype(np.int64) if bits \
+        else np.zeros(keys.size, np.int64)
+    rows = np.unique(b)
+    slots = np.minimum(occ[rows].astype(np.int64) + 1, 128)
+    sectors = -(-slots * 4 // 32)
+    nbytes = keys.size * 16 + rows.size * 4 + 2 * 32 * int(sectors.sum())
+    probes = np.ceil(np.log2(np.minimum(occ[b].astype(np.int64) + 1, 128)))
+    return bound(nbytes, 3 * float((probes + 1).sum()), FP32_FLOPS)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -236,6 +318,7 @@ def main() -> int:
     from repro_torch.core.edra import Event
     from repro_torch.core.ringstate import RingState
     from repro_torch.kernels import backend, build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -326,9 +409,9 @@ def main() -> int:
     words = torch.stack(got2).cpu().numpy().view(np.uint32).astype(np.uint64)
     if err2 or not np.array_equal((words[0] << w) | words[1], want_owner):
         raise AssertionError("K2 disagrees with its plain version / bisect")
+    occ = table[2].cpu().numpy()
     rows = np.unique(keys >> np.uint64(64 - BUCKETS.bit_length() + 1)).size
-    b2, by2 = bound(N_KEYS * 16 + rows * (128 * 8 + 4),
-                    N_KEYS * 128 * 3, FP32_FLOPS)
+    b2, by2 = k2_bound(keys, occ)
     act64 = sortable_ids(*(torch.from_numpy(
         a.astype(np.uint32).view(np.int32)).to(dev)
         for a in (act >> w, act & np.uint64(0xFFFFFFFF))))
@@ -338,6 +421,28 @@ def main() -> int:
         at = torch.searchsorted(act64, keys64) % N_PEERS
         return act_hi[at], act_lo[at]
 
+    # the fused round's shape: 32 keys (the first of them ids, the rest
+    # random), exactly as at 2^20
+    rk = slice(N_KEYS - K2_ROUND_KEYS // 2 - 16, N_KEYS - 16)
+    khi32 = torch.cat([khi[:K2_ROUND_KEYS // 2], khi[rk]])
+    klo32 = torch.cat([klo[:K2_ROUND_KEYS // 2], klo[rk]])
+    keys32 = torch.cat([keys64[:K2_ROUND_KEYS // 2], keys64[rk]])
+    got32 = rl_ops.ring_lookup_bucketed(khi32, klo32, *table)
+    plain32 = ring_lookup_bucketed_ref(khi32, klo32, *table)
+    want32 = np.concatenate([want_owner[:K2_ROUND_KEYS // 2],
+                             want_owner[rk]])
+    words32 = torch.stack(got32).cpu().numpy().view(np.uint32).astype(
+        np.uint64)
+    if not all(torch.equal(g, p) for g, p in zip(got32, plain32)) \
+            or not np.array_equal((words32[0] << w) | words32[1], want32):
+        raise AssertionError("K2 at Q=32 disagrees with its plain version / "
+                             "bisect")
+
+    def library32(i):
+        at = torch.searchsorted(act64, keys32) % N_PEERS
+        return act_hi[at], act_lo[at]
+    b32, by32 = k2_bound(np.concatenate([keys[:K2_ROUND_KEYS // 2],
+                                         keys[rk]]), occ)
     results["K2"] = {
         "name": "ring_lookup_bucketed", "route": "cuda",
         "source": "src/repro_torch/csrc/ring_lookup.cu",
@@ -349,27 +454,42 @@ def main() -> int:
                    library2),
         "plain_ms": cuda_ms(lambda i: ring_lookup_bucketed_ref(khi, klo,
                                                                *table)),
-        "bound_ms": b2, "bound_by": by2}
+        "bound_ms": b2, "bound_by": by2,
+        "q32": {"shape": f"Q={K2_ROUND_KEYS} (the fused round's full house)",
+                "max_abs_err": 0,
+                **in_turns(lambda i: rl_ops.ring_lookup_bucketed(
+                    khi32, klo32, *table), library32),
+                "plain_ms": cuda_ms(lambda i: ring_lookup_bucketed_ref(
+                    khi32, klo32, *table)),
+                "bound_ms": b32, "bound_by": by32}}
 
     k3_rows = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for b, s in K3_SHAPES:
-        per = 2 * b * s * HKV * HD * 2            # K and V bytes in bf16
+    for b, s, dtype_name in K3_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        size = torch.finfo(dtype).bits // 8
+        per = 2 * b * s * HKV * HD * size         # K and V bytes
         copies = max(1, math.ceil(128e6 / per))   # cycle past the 50 MB L2
         q = torch.randn((copies, b, H, HD), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+                        dtype=dtype)
         k = torch.randn((copies, b, s, HKV, HD), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+                        dtype=dtype)
         v = torch.randn((copies, b, s, HKV, HD), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+                        dtype=dtype)
         length = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
                                dtype=torch.int32)
-        got3 = da_ops.decode_attention(q[0], k[0], v[0], length)
+        fn3 = da_ops.decode_attention
+        tc_before = fn3.tc_launches
+        got3 = fn3(q[0], k[0], v[0], length)
         torch.cuda.synchronize()
+        route3 = "tc" if fn3.tc_launches > tc_before else "simt"
+        if route3 != da_kernel.route(dtype, HD, H // HKV):
+            raise AssertionError(f"K3 {dtype_name} took the {route3} route")
         plain3 = decode_attention_ref(q[0], k[0], v[0], length)
         err3 = float((got3.float() - plain3.float()).abs().max())
-        if not err3 <= BF16_ATOL:
-            raise AssertionError(f"K3 at B={b}, S={s}: max err {err3}")
+        if not err3 <= K3_TOL[dtype_name]:
+            raise AssertionError(f"K3 at B={b}, S={s}, {dtype_name}: max err "
+                                 f"{err3}")
         # the yardstick: SDPA with GQA and a length mask, on (B,Hkv,S,hd)
         # copies of the cache made outside the timed calls
         kt, vt = k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous()
@@ -377,30 +497,34 @@ def main() -> int:
             :, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         valid = int(length.sum())
-        bb, by3 = bound(valid * HKV * HD * 2 * 2 + 2 * b * H * HD * 2 + 4 * b,
-                        4 * valid * H * HD, BF16_FLOPS)
+        bb, by3 = bound(valid * HKV * HD * size * 2 + 2 * b * H * HD * size
+                        + 4 * b, 4 * valid * H * HD,
+                        FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k3_rows.append({
-            "B": b, "S": s, "max_abs_err": err3,
-            **in_turns(lambda i: da_ops.decode_attention(
-                q[i % copies], k[i % copies], v[i % copies], length),
-                lambda i: sdpa(q[i % copies][:, :, None], kt[i % copies],
-                               vt[i % copies], attn_mask=mask,
-                               enable_gqa=True)),
+            "B": b, "S": s, "dtype": dtype_name, "kernel_route": route3,
+            "max_abs_err": err3, "tolerance": K3_TOL[dtype_name],
+            **sdpa_in_turns(lambda i: fn3(q[i % copies], k[i % copies],
+                                          v[i % copies], length),
+                            lambda i: sdpa(q[i % copies][:, :, None],
+                                           kt[i % copies], vt[i % copies],
+                                           attn_mask=mask, enable_gqa=True)),
             "plain_ms": cuda_ms(lambda i: decode_attention_ref(
                 q[i % copies], k[i % copies], v[i % copies], length)),
             "bound_ms": bb, "bound_by": by3})
         del q, k, v, kt, vt
     torch.cuda.empty_cache()
-    main3 = next(r for r in k3_rows if (r["B"], r["S"]) == K3_MAIN)
+    main3 = next(r for r in k3_rows
+                 if (r["B"], r["S"], r["dtype"]) == K3_MAIN)
     results["K3"] = {
         "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "source": "src/repro_torch/csrc/decode_attention_tc.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
         "shape": f"B={K3_MAIN[0]}, H={H}, Hkv={HKV}, hd={HD}, S={K3_MAIN[1]}, "
                  "bf16, lengths in [1, S]",
-        "tolerance": BF16_ATOL,
-        **{key: main3[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                       "library_ms", "kernel_over_library",
+        **{key: main3[key] for key in ("kernel_route", "max_abs_err",
+                                       "tolerance", "ms", "plain_ms",
+                                       "library_ms", "library_call",
+                                       "kernel_over_library", "ratio_min_max",
                                        "bound_ms", "bound_by")}}
     k5_rows = []
     for b, sq, sk, causal, dtype_name in K5_CASES:
@@ -430,10 +554,10 @@ def main() -> int:
             "B": b, "Sq": sq, "Sk": sk, "causal": causal, "dtype": dtype_name,
             "kernel_route": route5,
             "max_abs_err": err5, "tolerance": K5_TOL[dtype_name],
-            **in_turns(lambda i: fa_ops.flash_attention(q, k, v,
-                                                        causal=causal),
-                       lambda i: sdpa(qt, kt, vt, is_causal=causal,
-                                      enable_gqa=True)),
+            **sdpa_in_turns(lambda i: fa_ops.flash_attention(q, k, v,
+                                                             causal=causal),
+                            lambda i: sdpa(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)),
             "plain_ms": cuda_ms(lambda i: flash_attention_ref(
                 q, k, v, causal=causal)),
             "bound_ms": b5, "bound_by": by5})
@@ -447,7 +571,8 @@ def main() -> int:
                  "causal (qwen2.5-3b whole-prompt admit)",
         **{key: main5[key] for key in ("kernel_route", "max_abs_err",
                                        "tolerance", "ms", "plain_ms",
-                                       "library_ms", "kernel_over_library",
+                                       "library_ms", "library_call",
+                                       "kernel_over_library", "ratio_min_max",
                                        "bound_ms", "bound_by")}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
@@ -513,6 +638,8 @@ def main() -> int:
     for ops_fn in (rl_ops.ring_lookup64, rl_ops.ring_lookup_bucketed,
                    da_ops.decode_attention):
         ops_fn.launches = 0
+    da_ops.decode_attention.tc_launches = 0
+    da_ops.decode_attention.simt_launches = 0
     owner_of = dict(zip([r.session_id for r in reqs],
                         router.route([r.session_id for r in reqs])))
 
@@ -554,7 +681,8 @@ def main() -> int:
     unfused = run(False)
     launches = {"K1": rl_ops.ring_lookup64.launches,
                 "K2": rl_ops.ring_lookup_bucketed.launches,
-                "K3": da_ops.decode_attention.launches}
+                "K3": da_ops.decode_attention.launches,
+                "K3_tc": da_ops.decode_attention.tc_launches}
     if fused[0] != unfused[0]:
         raise AssertionError("fused and unfused token streams differ")
     toks = np.array([t for s in fused[0].values() for t in s])
@@ -563,7 +691,8 @@ def main() -> int:
         raise AssertionError("tokens out of range or streams cut short")
     if k3_fused != cfg.num_layers * fused[3] or k2_fused != fused[3] \
             or launches["K3"] != cfg.num_layers * (fused[3] + unfused[3]) \
-            or launches["K2"] != fused[3] or launches["K1"] < 1:
+            or launches["K2"] != fused[3] or launches["K1"] < 1 \
+            or launches["K3_tc"] != launches["K3"]:
         raise AssertionError(f"launch counts {launches} off the main path")
     # a whole-width prefill segment gives finite logits and the first token
     probe = reqs[0]
@@ -590,6 +719,8 @@ def main() -> int:
               "unfused_mean": float(np.mean(unfused[2][1:])),
               "fused_first": fused[2][0]},
           "launches": launches, "tokens_equal": True,
+          "k3_tc_launches_per_replica_round":
+              launches["K3_tc"] / (fused[3] + unfused[3]),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
     results["K5"]["launches"] = whole_prompt_admits(

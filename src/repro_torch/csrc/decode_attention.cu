@@ -1,4 +1,6 @@
-// Decode attention for Hopper (sm_90a): K3.
+// Decode attention for Hopper (sm_90a): K3's SIMT route, for f32 and for
+// the head layouts the tensor-core route (decode_attention_tc.cu) does not
+// take; kernels/decode_attention/kernel.py::route picks before the launch.
 //
 // Replaces repro/kernels/decode_attention/kernel.py::decode_attention_pallas:
 // attention for one new token per row over a KV cache, the g = H / Hkv

@@ -39,14 +39,33 @@
 //   like the TPU kernel.
 //
 // K2 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup_bucketed_pallas.
-//   One warp per key: the bucket is the top R bits of hi; each lane loads 4
-//   of the row's 128 slots (lanes on neighbouring addresses, so one row is
-//   four coalesced 128-byte reads per word), compares them against the key,
-//   and __ballot_sync/__popc give the count of live slots below it.  Lane 0
-//   then writes row[count]: the owner id.  Bound on this card: bytes — one
-//   1 KiB row pair per key plus the keys and owners; the directory is sized
-//   to fit L2 (kernels/backend.py::bucket_budget_bytes), so rows hit L2.
-//
+//   The bucket is the top R bits of hi; the owner is row[count], count the
+//   live slots of the row below the key (capped at 127: the slack slots
+//   carry the bucket's successor).  Bound on this card: bytes -- the keys
+//   and owners, and of each touched row its occ and the slots 0..occ[b]
+//   the answer depends on, once; the directory is sized to fit
+//   L2 (kernels/backend.py::bucket_budget_bytes), so every read of a row is
+//   an L2 request, and the requests a key makes, and how many of them wait
+//   on one another, are what the kernel pays: a warp a key reading the whole
+//   1 KiB row pair (32 sectors) read as long on sorted keys as on random
+//   ones (PERF.md, section 6).  One thread a key, 256-thread blocks over Q:
+//   * ring ids are uniform hashes, so the count below a key is near
+//     frac * occ[b], frac the key's place in its bucket's range.  The
+//     thread reads the kWindow slots around that guess, one aligned 32-byte
+//     sector of hi words and one of lo words, and counts the live ones
+//     below the key in registers;
+//   * when the window holds the answer (neither wholly above nor wholly
+//     below the key) that is the count, and the owner is in registers: a
+//     key costs occ, two sectors and three dependent L2 round trips.
+//     Otherwise the branchless lower bound K1 and K7 use finishes the
+//     search on the side the window rules out, loading hi[mid] and lo[mid]
+//     only where the high words tie.  Uniformity buys speed only: any
+//     directory gives the same answer;
+//   * a batch of at most kK2WarpKeys keys (a fused decode round has <= 32)
+//     is too small to fill the card, so it pays the chain of its slowest
+//     key, up to ~8 round trips through a fallback search; there one warp a
+//     key reads the whole row pair at once and counts with a ballot, in ~3.
+//     The launcher picks by Q before the launch.
 // K7 replaces repro/kernels/ring_lookup/kernel.py::ring_lookup_pallas.
 //   bisect_left(table, key) % N over a sorted (N,) uint32 table, which may
 //   hold duplicates (the count is of strict "less than", so a run of equal
@@ -71,6 +90,8 @@ constexpr int kThreads = 256;
 constexpr int kSample = 4096;    // K1's splitter sample: 32 KB of uint64
 constexpr int kK1Threads = 1024;
 constexpr int kK1BlocksPerSM = 1;
+constexpr int kWindow = 8;   // K2's first read: slots a 32-byte sector holds
+constexpr int64_t kK2WarpKeys = 4096;   // K2 takes a warp a key up to here
 
 __device__ __forceinline__ uint64_t id64(uint32_t hi, uint32_t lo) {
   return (static_cast<uint64_t>(hi) << 32) | lo;
@@ -146,14 +167,17 @@ __global__ void ring_lookup32_kernel(const uint32_t* __restrict__ keys,
   out[i] = count == n ? 0 : count;
 }
 
-__global__ void ring_lookup_bucketed_kernel(const uint32_t* __restrict__ keys_hi,
-                                            const uint32_t* __restrict__ keys_lo,
-                                            const uint32_t* __restrict__ bkt_hi,
-                                            const uint32_t* __restrict__ bkt_lo,
-                                            const int32_t* __restrict__ occ,
-                                            uint32_t* __restrict__ out_hi,
-                                            uint32_t* __restrict__ out_lo,
-                                            int64_t q, int bits) {
+// K2 for a few keys: one warp a key reads the whole row pair at once, each
+// lane 4 of its 128 slots (four coalesced 128-byte reads a word), and
+// __ballot_sync/__popc count the live slots below the key
+__global__ void ring_lookup_bucketed_warp_kernel(const uint32_t* __restrict__ keys_hi,
+                                                 const uint32_t* __restrict__ keys_lo,
+                                                 const uint32_t* __restrict__ bkt_hi,
+                                                 const uint32_t* __restrict__ bkt_lo,
+                                                 const int32_t* __restrict__ occ,
+                                                 uint32_t* __restrict__ out_hi,
+                                                 uint32_t* __restrict__ out_lo,
+                                                 int64_t q, int bits) {
   const int lane = threadIdx.x & 31;
   // blockDim is a multiple of 32, so i is the same on every lane of a warp
   const int64_t i = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
@@ -176,6 +200,62 @@ __global__ void ring_lookup_bucketed_kernel(const uint32_t* __restrict__ keys_hi
     out_hi[i] = row_hi[count];
     out_lo[i] = row_lo[count];
   }
+}
+
+__global__ void ring_lookup_bucketed_kernel(const uint32_t* __restrict__ keys_hi,
+                                            const uint32_t* __restrict__ keys_lo,
+                                            const uint32_t* __restrict__ bkt_hi,
+                                            const uint32_t* __restrict__ bkt_lo,
+                                            const int32_t* __restrict__ occ,
+                                            uint32_t* __restrict__ out_hi,
+                                            uint32_t* __restrict__ out_lo,
+                                            int64_t q, int bits) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= q) return;
+  const uint32_t kh = keys_hi[i];
+  const uint32_t kl = keys_lo[i];
+  const uint64_t key = id64(kh, kl);
+  const uint32_t b = bits > 0 ? (kh >> (32 - bits)) : 0u;
+  const uint32_t* row_hi = bkt_hi + static_cast<size_t>(b) * kRowWidth;
+  const uint32_t* row_lo = bkt_lo + static_cast<size_t>(b) * kRowWidth;
+  const int32_t live = occ[b];
+  // the key's place in its bucket's range as a 32-bit fraction, and the
+  // window of kWindow slots (a 32-byte sector of each word) holding
+  // frac * live, the count expected below it
+  const uint32_t frac = static_cast<uint32_t>((key << bits) >> 32);
+  const int32_t guess = static_cast<int32_t>((static_cast<uint64_t>(frac) * live) >> 32);
+  const int32_t w0 = guess & ~(kWindow - 1);
+  uint32_t wh[kWindow], wl[kWindow];
+#pragma unroll
+  for (int v = 0; v < kWindow / 4; ++v) {
+    const uint4 h = reinterpret_cast<const uint4*>(row_hi + w0)[v];
+    const uint4 l = reinterpret_cast<const uint4*>(row_lo + w0)[v];
+    wh[4 * v] = h.x, wh[4 * v + 1] = h.y, wh[4 * v + 2] = h.z, wh[4 * v + 3] = h.w;
+    wl[4 * v] = l.x, wl[4 * v + 1] = l.y, wl[4 * v + 2] = l.z, wl[4 * v + 3] = l.w;
+  }
+  int32_t in = 0;                      // live slots of the window below the key
+#pragma unroll
+  for (int j = 0; j < kWindow; ++j) in += w0 + j < live && id64(wh[j], wl[j]) < key;
+  const auto below = [&](int32_t j) {  // the low word only on a tie
+    const uint32_t h = row_hi[j];
+    return h < kh || (h == kh && row_lo[j] < kl);
+  };
+  int32_t count = w0 + in;
+  if (in == 0 && w0 > 0) {             // the window starts at or past the key
+    count = count_below(w0, below);
+  } else if (in == kWindow && count < live) {   // it ends below the key
+    count += count_below(live - count, [&](int32_t j) { return below(w0 + kWindow + j); });
+  }
+  count = min(count, kRowWidth - 1);   // occ < 128 keeps a pad slot
+  uint32_t oh = 0, ol = 0;
+  bool held = false;
+#pragma unroll
+  for (int j = 0; j < kWindow; ++j) {
+    if (count == w0 + j) oh = wh[j], ol = wl[j], held = true;
+  }
+  if (!held) oh = row_hi[count], ol = row_lo[count];
+  out_hi[i] = oh;
+  out_lo[i] = ol;
 }
 
 }  // namespace
@@ -213,14 +293,23 @@ extern "C" int ring_lookup_bucketed_launch(const void* keys_hi, const void* keys
                                            const void* bkt_hi, const void* bkt_lo,
                                            const void* occ, void* out_hi, void* out_lo,
                                            int64_t q, int bits, void* stream) {
-  const int64_t warps_per_block = kThreads / 32;
-  const int64_t blocks = (q + warps_per_block - 1) / warps_per_block;
-  ring_lookup_bucketed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys_hi), static_cast<const uint32_t*>(keys_lo),
-      static_cast<const uint32_t*>(bkt_hi), static_cast<const uint32_t*>(bkt_lo),
-      static_cast<const int32_t*>(occ), static_cast<uint32_t*>(out_hi),
-      static_cast<uint32_t*>(out_lo), q, bits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* kh = static_cast<const uint32_t*>(keys_hi);
+  const auto* kl = static_cast<const uint32_t*>(keys_lo);
+  const auto* bh = static_cast<const uint32_t*>(bkt_hi);
+  const auto* bl = static_cast<const uint32_t*>(bkt_lo);
+  const auto* oc = static_cast<const int32_t*>(occ);
+  auto* oh = static_cast<uint32_t*>(out_hi);
+  auto* ol = static_cast<uint32_t*>(out_lo);
+  if (q <= kK2WarpKeys) {
+    const int64_t blocks = (q + kThreads / 32 - 1) / (kThreads / 32);
+    ring_lookup_bucketed_warp_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        kh, kl, bh, bl, oc, oh, ol, q, bits);
+  } else {
+    const int64_t blocks = (q + kThreads - 1) / kThreads;
+    ring_lookup_bucketed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        kh, kl, bh, bl, oc, oh, ol, q, bits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -50,6 +50,12 @@ def bucket_budget_bytes(device) -> int:
     return 256 << 20
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a kernel launch,
+    without building a ``torch.cuda.Stream`` (host time a launch pays)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def nvidia_smi_line() -> Optional[str]:
     """``name, power.limit`` of the cards as nvidia-smi prints them, or
     None where nvidia-smi is missing."""

@@ -38,6 +38,9 @@ SIGNATURES = {
     # q, k, v, length, out, m_part, l_part, acc_part,
     # B, S, H, Hkv, hd, splits, dtype, vec, scale, stream
     "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q, k, v, length, out, partials, counters,
+    # B, S, H, Hkv, hd, chunk, dtype, scale, stream (the tensor-core route)
+    "decode_attention_tc_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     # offset, n, reporter, t_detect, event_key, ack, ttl, depth, parent,
     # sends, p, levels, variant, theta, inv_theta, e_buf, e_cap_m1,
     # inv_fill, delta, phase_key (a uint32: c_int would wrap >= 2^31), stream

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ..backend import raw_stream
 
 
 def _check(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -38,7 +39,7 @@ def ring_lookup_cuda(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if q:
         build.launch("ring_lookup_launch", keys.data_ptr(), table.data_ptr(),
                      out.data_ptr(), q, n,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     raw_stream(dev))
     return out
 
 
@@ -56,7 +57,7 @@ def ring_lookup64_cuda(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
         build.launch("ring_lookup64_launch", keys_hi.data_ptr(),
                      keys_lo.data_ptr(), table_hi.data_ptr(),
                      table_lo.data_ptr(), n.data_ptr(), out.data_ptr(), q,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     raw_stream(dev))
     return out
 
 
@@ -74,11 +75,14 @@ def ring_lookup_bucketed_cuda(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
     if bkt_hi.shape != (nb, 128) or bkt_lo.shape != (nb, 128) \
             or occ.shape != (nb,) or keys_lo.numel() != q:
         raise ValueError("ring_lookup_bucketed: mismatched shapes")
-    out_hi = torch.empty(q, dtype=torch.int32, device=dev)
-    out_lo = torch.empty(q, dtype=torch.int32, device=dev)
+    if bkt_hi.data_ptr() % 16 or bkt_lo.data_ptr() % 16:   # 16-byte reads
+        raise ValueError("ring_lookup_bucketed: bucket rows must be "
+                         "16-byte aligned")
+    out_hi, out_lo = torch.empty((2, q), dtype=torch.int32,
+                                 device=dev).unbind(0)
     if q:
         build.launch("ring_lookup_bucketed_launch", keys_hi.data_ptr(),
                      keys_lo.data_ptr(), bkt_hi.data_ptr(), bkt_lo.data_ptr(),
                      occ.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(), q,
-                     bits, torch.cuda.current_stream(dev).cuda_stream)
+                     bits, raw_stream(dev))
     return out_hi, out_lo

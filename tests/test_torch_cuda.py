@@ -18,6 +18,7 @@ from repro_torch.core.churn import ChurnConfig
 from repro_torch.core.ringstate import RingState
 from repro_torch.core.sim import simulate_churn
 from repro_torch.kernels.backend import strict_fp32
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.edra_tree import kernel as et_kernel
@@ -114,6 +115,74 @@ def test_ring_lookup_bucketed_kernel_equals_plain(cuda, n):
         ids[np.searchsorted(ids, keys) % ids.size])
 
 
+def _crowded_ring(seed=0):
+    """2048 peers over 64 buckets: bucket 0 holds 127 of them (one row at
+    occ 127), bucket 1 none (occ 0), some ids share a high word, and the
+    rest lie in buckets 2-63."""
+    rng = np.random.default_rng(seed)
+    top = np.uint64(58)
+    crowded = rng.integers(0, 2**58, 127, dtype=np.uint64)
+    crowded[:8] = (crowded[0] >> np.uint64(32) << np.uint64(32)) \
+        + rng.integers(0, 2**32, 8, dtype=np.uint64)
+    rest = rng.integers(2 << 58, 2**64, 2048 - 127, dtype=np.uint64)
+    ids = np.unique(np.concatenate([crowded, rest]))
+    assert ids.size == 2048 and int((ids >> top == 0).sum()) == 127
+    one = np.uint64(1)
+    keys = np.concatenate([rng.integers(0, 2**64, 4096, dtype=np.uint64),
+                           ids, ids + one, ids - one,
+                           np.array([1 << 58, 0, 2**64 - 1], np.uint64)])
+    return ids, keys
+
+
+def _bucketed_equals_plain_and_bisect(state, keys, cuda):
+    table = state.device_bucket_table()
+    khi, klo = _words(keys, cuda)
+    before = rl_ops.ring_lookup_bucketed.launches
+    got = rl_ops.ring_lookup_bucketed(khi, klo, *table)
+    torch.cuda.synchronize()
+    assert rl_ops.ring_lookup_bucketed.launches == before + 1
+    want = rl_ref.ring_lookup_bucketed_ref(khi, klo, *table)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    act = state.active_ids()
+    owners = (got[0].cpu().numpy().view(np.uint32).astype(np.uint64)
+              << np.uint64(32)) | got[1].cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(owners,
+                                  act[np.searchsorted(act, keys) % act.size])
+
+
+@pytest.mark.cuda
+def test_ring_lookup_bucketed_kernel_on_full_and_empty_rows(cuda):
+    ids, keys = _crowded_ring()
+    state = RingState(ids, device=cuda)
+    state.device_bucket_table()
+    stats = state.bucket_stats()
+    assert stats["valid"] and stats["buckets"] == 64
+    assert stats["max_occupancy"] == 127
+    occ = state.device_bucket_table()[2].cpu().numpy()
+    assert occ[0] == 127 and occ[1] == 0
+    assert keys.size > 4096                # the window route, then the warps
+    _bucketed_equals_plain_and_bisect(state, keys, cuda)
+    _bucketed_equals_plain_and_bisect(state, np.concatenate(
+        [keys[4096:4096 + 200], keys[-3:]]), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [32, 1 << 16])
+def test_ring_lookup_bucketed_kernel_at_a_million_peers(cuda, q):
+    """10^6 peers (2^15 buckets), 1000 of them quarantined: the fused
+    round's 32 keys and a 2^16-key batch."""
+    ids, _ = _ring(1_000_000, seed=3)
+    state = RingState(ids, device=cuda)
+    for pid in ids[::1000]:
+        state.set_quarantined(int(pid), True)
+    assert len(state) == ids.size - ids[::1000].size
+    rng = np.random.default_rng(q)
+    keys = np.concatenate([ids[::1000], ids[1::1000],
+                           rng.integers(0, 2**64, q, dtype=np.uint64)])[:q]
+    _bucketed_equals_plain_and_bisect(state, keys, cuda)
+    assert state.bucket_stats()["buckets"] == 1 << 15
+
+
 def _k7_case(n, dups, seed=0):
     """A sorted uint32 table of n words (the high words of random 64-bit
     ids, with runs of repeated words when ``dups``) and keys: random
@@ -194,6 +263,99 @@ def test_decode_attention_kernel_equals_plain(cuda, dtype, b, h, hkv, hd, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [2048, 2000])
+def test_decode_attention_full_house_on_the_tensor_cores(cuda, dtype, s):
+    """A replica's 32 slots at qwen2.5-3b's heads, rows of length 0 and S
+    among random ones: one launch, on the tensor-core route."""
+    b, h, hkv, hd = 32, 16, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    length = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    length[:4] = torch.tensor([0, s, 1, 65], dtype=torch.int32)
+    fn = da_ops.decode_attention
+    before = fn.launches, fn.tc_launches, fn.simt_launches
+    got = fn(q, k, v, length)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches, fn.simt_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = da_ref.decode_attention_ref(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_attention_calls_in_a_row_reset_the_merge(cuda):
+    """Calls at B 32, then 5, then 32 again share the merge's counters on
+    one stream; each must leave them at 0 for the next."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for b in (32, 5, 32, 1):
+        q = torch.randn((b, 16, 128), generator=gen, device=cuda).bfloat16()
+        k = torch.randn((b, 2048, 2, 128), generator=gen,
+                        device=cuda).bfloat16()
+        v = torch.randn((b, 2048, 2, 128), generator=gen,
+                        device=cuda).bfloat16()
+        length = torch.randint(1, 2049, (b,), generator=gen, device=cuda,
+                               dtype=torch.int32)
+        got = da_ops.decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got.float(), da_ref.decode_attention_ref(q, k, v, length).float(),
+            atol=BF16_ATOL, rtol=0)
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        part, count = da_kernel.tc_scratch(q.device, stream, 1, 1)
+        assert not count.any()
+
+
+@pytest.mark.cuda
+def test_misaligned_inputs_are_refused_before_a_launch(cuda):
+    """K3's tensor-core route reads q, K and V with 16-byte cp.async and
+    K2 its rows with 16-byte loads: a view one element in is refused."""
+    buf = torch.randn(2 * 64 * 2 * 128 + 1, device=cuda).bfloat16()
+    kv = buf[1:].view(2, 64, 2, 128)
+    assert kv.is_contiguous() and kv.data_ptr() % 16
+    q = torch.randn((2, 16, 128), device=cuda).bfloat16()
+    length = torch.tensor([64, 3], dtype=torch.int32, device=cuda)
+    before = da_ops.decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        da_ops.decode_attention(q, kv, kv, length)
+    words = torch.zeros(2 * 128 + 1, dtype=torch.int32, device=cuda)
+    rows = words[1:].view(2, 128)
+    occ = torch.zeros(2, dtype=torch.int32, device=cuda)
+    keys = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rl_ops.ring_lookup_bucketed(keys, keys, rows, rows, occ)
+    assert da_ops.decode_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_decode_attention_routes(cuda):
+    """bf16 at hd 128 runs on the tensor cores, f32 on the SIMT kernels;
+    the route is the kernel module's, picked before the launch."""
+    fn = da_ops.decode_attention
+    for dtype, hd, h, want in ((torch.bfloat16, 128, 16, "tc"),
+                               (torch.float16, 64, 8, "tc"),
+                               (torch.float32, 128, 16, "simt"),
+                               (torch.bfloat16, 40, 4, "simt"),
+                               (torch.bfloat16, 64, 34, "simt")):
+        assert da_kernel.route(dtype, hd, h // 2) == want
+        q = torch.randn((2, h, hd), device=cuda).to(dtype)
+        kv = torch.randn((2, 96, 2, hd), device=cuda).to(dtype)
+        length = torch.tensor([96, 50], dtype=torch.int32, device=cuda)
+        before = fn.tc_launches, fn.simt_launches
+        got = fn(q, kv, kv, length)
+        assert (fn.tc_launches - before[0], fn.simt_launches - before[1]) \
+            == ((1, 0) if want == "tc" else (0, 1))
+        atol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+        torch.testing.assert_close(
+            got.float(), da_ref.decode_attention_ref(q, kv, kv, length).float(),
+            atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
 def test_decode_attention_length_zero_is_mean_of_v(cuda):
     q = torch.randn((2, 4, 32), device=cuda)
     k = torch.randn((2, 40, 2, 32), device=cuda)
@@ -204,6 +366,23 @@ def test_decode_attention_length_zero_is_mean_of_v(cuda):
     torch.testing.assert_close(got[0], mean_v, atol=F32_ATOL, rtol=0)
     torch.testing.assert_close(got, da_ref.decode_attention_ref(q, k, v, length),
                                atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_attention_length_zero_on_the_tensor_cores(cuda):
+    """bf16: a row of length 0 gives the mean of V, merged over chunks."""
+    q = torch.randn((2, 16, 128), device=cuda).bfloat16()
+    k = torch.randn((2, 700, 2, 128), device=cuda).bfloat16()
+    v = torch.randn((2, 700, 2, 128), device=cuda).bfloat16()
+    length = torch.tensor([0, 700], dtype=torch.int32, device=cuda)
+    before = da_ops.decode_attention.tc_launches
+    got = da_ops.decode_attention(q, k, v, length).float()
+    assert da_ops.decode_attention.tc_launches == before + 1
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(8, dim=0)  # (H, hd)
+    torch.testing.assert_close(got[0], mean_v, atol=BF16_ATOL, rtol=0)
+    torch.testing.assert_close(
+        got, da_ref.decode_attention_ref(q, k, v, length).float(),
+        atol=BF16_ATOL, rtol=0)
 
 
 @pytest.mark.cuda

@@ -53,7 +53,7 @@ def _env(**extra):
 def test_port_imports_neither_jax_nor_repro():
     res = subprocess.run(
         [sys.executable, "-c", _HYGIENE, str(REPO / "chip_smoke.py"),
-         str(REPO / "chip_profile.py")],
+         str(REPO / "chip_profile.py"), str(REPO / "chip_kernel_steps.py")],
         env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[-1]) >= 25      # every module was walked
@@ -62,7 +62,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_chip_scripts_import_neither_jax_nor_repro_anywhere():
     """Their package imports sit inside ``main``: check every import
     statement, not only the module-level ones."""
-    for script in ("chip_smoke.py", "chip_profile.py"):
+    for script in ("chip_smoke.py", "chip_profile.py",
+                   "chip_kernel_steps.py"):
         tree = ast.parse((REPO / script).read_text())
         for node in ast.walk(tree):
             names = [a.name for a in node.names] \
