@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""What holds K3 (decode attention) and K2 (bucketed ring lookup) back,
-and what each step of their redesign buys, on one card.
+"""What holds K3 (decode attention), K2 (bucketed ring lookup), K6
+(selective scan) and K4 (EDRA tree) back, and what each step of their
+redesign buys, on one card.
 
-    python3 chip_kernel_steps.py
+    python3 chip_kernel_steps.py [phase ...]     # all phases by default
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (as ``chip_smoke.py``
 does) and prints one JSON line per measurement.  ``ms`` is the CUDA-event
@@ -38,12 +39,39 @@ layer's cache is cold:
             a 16-slot window (``kWindow`` patched to 16), at the same keys,
             by event and device time; then the window route alone and the
             warp-a-key route alone (``kK2WarpKeys`` patched) at Q from 32 to
-            2^16, by device time, which places the launcher's choice.
+            2^16, by device time, which places the launcher's choice;
+  k6        K6 at (1, L, 8192, 16), bf16 x/B/C/D, f32 dt/A, for L 128, 512
+            and 1024 (a falcon-mamba-7b admit's prompts): the kernel and
+            each timing variant of its design (``K6_STEPS``: patched copies
+            of ``csrc/ssm_scan.cu``; the PR 13 design's precise ``expf`` to
+            ``exp2f``, no h.C reduction, staging tiles of 16-128 positions;
+            the PR 17 design's ``expf``, 8 positions a segment with 4
+            states interleaved, 2 or 4 states interleaved, one tile in
+            shared memory instead of two, 16 segments of 8 positions a
+            channel, and timing-only cuts: no exponentials, no state loop,
+            no loads after the first tile, no scan, no h chain in the
+            walk), with the plain version's errors beside (only the
+            kernel is gated), the bound
+            and the SFU's floor (``chip_smoke.sfu_ms``); first the launch's
+            occupancy and registers (a probe built into the kernel's own
+            translation unit);
+  k4        K4 at 2^21 pairs on rings of 10^6 +- 400 (``chip_smoke``'s
+            inputs) in its three variants: the kernel, the same pairs
+            sorted by popcount, and each timing variant of its design
+            (``K4_STEPS``; the PR 12 design's modulo as a subtraction,
+            ``__logf``, grid caps; the PR 17 design's unsorted tiles, the
+            modulo at every hop, ``__logf``, grids of 1 to 64 waves of
+            resident blocks), integers and ack bits against the plain
+            version (only the kernel is gated); first the launch shape.
+
+The phases read which design the checkout holds from its sources, so the
+script also measures a parent's kernels when copied into its tree.
 
 Then nvidia-smi's name and power limit as the last line.  Imports no jax.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -300,19 +328,21 @@ extern "C" int ring_lookup_bucketed_launch(const void* kh, const void* kl,
 """
 
 
-def variant_library(name: str, src: Path, swaps=None):
+def variant_library(name: str, src: Path, swaps=None, extra: str = ""):
     """One CUDA source built into build/steps/, with its entry points typed
     as ``build.SIGNATURES`` types them.  ``swaps`` maps lines of the source
     to their replacements: the variant is a patched copy, and each line
-    must be found once."""
+    must be found once.  ``extra`` is appended to the patched copy (a probe
+    that reads the kernel's launch attributes in the same translation
+    unit)."""
     from repro_torch.kernels import build
-    if swaps:
+    if swaps or extra:
         text = src.read_text()
-        for old, new in swaps.items():
+        for old, new in (swaps or {}).items():
             if text.count(old) != 1:
                 raise AssertionError(f"{src.name}: {old!r} not found once")
             text = text.replace(old, new)
-        src = build_dir_source(f"{name}.cu", text)
+        src = build_dir_source(f"{name}.cu", text + extra)
     out = build.BUILD_DIR / "steps" / f"{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
@@ -329,6 +359,29 @@ def variant_library(name: str, src: Path, swaps=None):
 def checked(code: int) -> None:
     if code:
         raise RuntimeError(f"CUDA error {code}")
+
+
+@contextlib.contextmanager
+def routed_to(lib):
+    """The wrappers' launches go to ``lib`` (a variant library) inside the
+    block: ``build.launch`` is looked up at each call."""
+    from repro_torch.kernels import build
+    saved = build.launch
+    build.launch = lambda name, *args: checked(getattr(lib, name)(*args))
+    try:
+        yield
+    finally:
+        build.launch = saved
+
+
+def probe(lib, *args) -> list:
+    """The ``steps_probe`` entry a variant library was built with: eight
+    ints of launch attributes (see the probe sources below)."""
+    out = (ctypes.c_int * 8)()
+    lib.steps_probe.argtypes = [ctypes.c_int] * len(args) \
+        + [ctypes.POINTER(ctypes.c_int)]
+    checked(lib.steps_probe(*args, out))
+    return list(out)
 
 
 def tc_launch(lib, q, k, v, length, chunk):
@@ -474,8 +527,267 @@ def build_dir_source(name: str, text: str) -> Path:
     return path
 
 
-def main() -> int:
+# -- K6 (selective scan) and K4 (EDRA tree) ---------------------------------
+
+K6_LENGTHS = (128, 512, 1024)     # falcon-mamba-7b admits' prompt lengths
+# timing variants of each design of csrc/ssm_scan.cu (patched copies), and
+# a probe of its launch appended to the kernel's own translation unit:
+# out = (blocks an SM, registers, dynamic smem bytes, threads a block,
+# channels a block, positions a tile, local-memory bytes, blocks a row)
+K6_STEPS = {
+    # PR 13: a thread a (channel, state), P lanes a channel, y by shuffles
+    "pr13": ({
+        "exp2f": {
+            "const float a = live ? A[static_cast<size_t>(ch) * N + s] : 0.f;":
+            "const float a = live ? A[static_cast<size_t>(ch) * N + s] * "
+            "1.4426950408889634f : 0.f;",
+            "const float da = expf(__fmul_rn(dtt, a));":
+            "const float da = exp2f(__fmul_rn(dtt, a));"},
+        "no_reduction": {"for (int off = P >> 1; off > 0; off >>= 1)":
+                         "for (int off = 0; off > 0; off >>= 1)"},
+        **{f"kt{k}": {"int kt = 64;": f"int kt = {k};"} for k in (16, 32, 128)},
+    }, r"""
+extern "C" int steps_probe(int n, int din, int* out) {
+  int P = 1;
+  while (P < n) P <<= 1;
+  const int cpb = kThreads / P;
+  int kt = 64;
+  while (kt > 1 && smem_floats(kt, cpb, n) * sizeof(float) > kSmemBudget) kt >>= 1;
+  const int smem = static_cast<int>(smem_floats(kt, cpb, n) * sizeof(float));
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, ssm_scan_kernel<__nv_bfloat16>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], ssm_scan_kernel<__nv_bfloat16>, kThreads, smem);
+  out[1] = attr.numRegs; out[2] = smem; out[3] = kThreads; out[4] = cpb;
+  out[5] = kt; out[6] = static_cast<int>(attr.localSizeBytes);
+  out[7] = (din + cpb - 1) / cpb;
+  return static_cast<int>(e);
+}
+"""),
+    # PR 17: a thread a (channel, segment of kItems positions), the states
+    # looped in the thread, segments joined by a scan of (decay, h) pairs
+    "pr17": ({
+        "expf": {'  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
+                 "  y = exp2f(x);"},
+        "items8_group4": {"constexpr int kItems = 16;":
+                          "constexpr int kItems = 8;",
+                          "constexpr int kStateGroup = 1;":
+                          "constexpr int kStateGroup = 4;"},
+        **{f"group{k}": {"constexpr int kStateGroup = 1;":
+                         f"constexpr int kStateGroup = {k};"} for k in (2, 4)},
+        "one_stage": {"constexpr int kStages = 2;": "constexpr int kStages = 1;"},
+        "segs16": {
+            "constexpr int kSegs = 8;": "constexpr int kSegs = 16;",
+            "constexpr int kChannels = 32;": "constexpr int kChannels = 16;",
+            "constexpr int kItems = 16;": "constexpr int kItems = 8;",
+            "constexpr int kMinBlocks = 2;": "constexpr int kMinBlocks = 3;"},
+        # timing only: no exponentials, the loads and stores alone, the
+        # maths alone, no scan, no h chain in the walk
+        "no_exp": {'  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
+                   "  y = 1.0f + x;"},
+        "no_states": {"    for (int n0 = 0; n0 < npad; n0 += kStateGroup) {":
+                      "    for (int n0 = 0; n0 < 0; n0 += kStateGroup) {"},
+        "no_loads": {"    if (t0 + kTile < L) fetch(t0 + kTile, st ^ 1);":
+                     "    if (false) fetch(t0 + kTile, st ^ 1);"},
+        "no_scan": {"      for (int dd = 1; dd < kSegs; dd <<= 1) {":
+                    "      for (int dd = kSegs; dd < kSegs; dd <<= 1) {"},
+        "walk_no_chain": {"            h = fmaf(da[g][i], h, u[g][i]);":
+                          "            h = u[g][i];"},
+    }, r"""
+extern "C" int steps_probe(int n, int din, int* out) {
+  const int smem = static_cast<int>(smem_bytes<__nv_bfloat16>(n));
+  cudaFuncAttributes attr;
+  cudaError_t e = prepare<__nv_bfloat16>(smem);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, ssm_scan_kernel<__nv_bfloat16>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], ssm_scan_kernel<__nv_bfloat16>, kThreads, smem);
+  out[1] = attr.numRegs; out[2] = smem; out[3] = kThreads; out[4] = kChannels;
+  out[5] = kTile; out[6] = static_cast<int>(attr.localSizeBytes);
+  out[7] = (din + kChannels - 1) / kChannels;
+  return static_cast<int>(e);
+}
+"""),
+}
+
+
+def design(src: Path, marker: str, new: str, old: str) -> str:
+    return new if marker in src.read_text() else old
+
+
+def k6(dev, gen):
+    """K6 at (1, L, 8192, 16) for the admit's prompt lengths: the kernel,
+    then each timing variant of its design, by CUDA-event and device time,
+    each beside the plain version's errors (variants are not gated); the
+    launch's occupancy first."""
     import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    src = build.CSRC / "ssm_scan.cu"
+    which = design(src, "kItems", "pr17", "pr13")
+    swaps, probe_src = K6_STEPS[which]
+    libs = {"kernel": variant_library(f"k6_{which}", src, extra=probe_src)}
+    libs.update({name: variant_library(f"k6_{which}_{name}", src, sw)
+                 for name, sw in swaps.items()})
+    _, _, din, n = smoke.K6_SHAPE
+    occ = probe(libs["kernel"], n, din)
+    emit({"phase": "k6_launch", "design": which, "blocks_per_sm": occ[0],
+          "registers": occ[1], "smem_bytes": occ[2], "threads": occ[3],
+          "channels_per_block": occ[4], "tile_positions": occ[5],
+          "local_bytes": occ[6], "blocks": occ[7],
+          "sms": torch.cuda.get_device_properties(dev).multi_processor_count})
+    for l in K6_LENGTHS:
+        x, dt, B, C, A, D, h0 = smoke.k6_random_inputs(dev, gen,
+                                                       (1, l, din, n))
+        x, B, C, D = (t.bfloat16() for t in (x, B, C, D))
+        args = (x, dt, B, C, A, D, h0)
+        wy, wh = ssm_scan_ref(*args)
+        b6, by6 = smoke.k6_bound(*args)
+        row = {"L": l, "exponentials": l * din * n, "bound_ms": b6,
+               "bound_by": by6, "sfu_ms": smoke.sfu_ms(l * din * n)}
+        for name, lib in libs.items():
+            with routed_to(lib):
+                y, h = sk.ssm_scan_cuda(*args)
+                torch.cuda.synchronize()
+                fn = lambda i: sk.ssm_scan_cuda(*args)  # noqa: E731
+                row[name] = {
+                    "ms": smoke.cuda_ms(fn), "device_ms": device_ms(fn),
+                    "h_err": float((h - wh).abs().max()),
+                    "y_err": float((y.float() - wy.float()).abs().max())}
+        gate = row["kernel"]
+        if not (gate["h_err"] <= smoke.K6_ATOL and gate["y_err"]
+                <= smoke.K6_Y_REL * float(wy.float().abs().max())):
+            raise AssertionError(f"K6 L={l}: {gate}")
+        emit({"phase": "k6", "design": which, **row})
+        del x, dt, B, C, A, D, h0, wy, wh
+        torch.cuda.empty_cache()
+
+
+K4_STEPS = {
+    # PR 12: every level tested in turn, the modulo at every hop
+    "pr12": ({
+        "mod_subtract": {"const uint32_t sender = (rep + cur) % n;":
+                         "uint32_t sender = rep + cur; "
+                         "if (sender >= n) sender -= n;"},
+        "fast_log": {"const float dly = __fmul_rn(-logf(u01(h)), c.delta);":
+                     "const float dly = __fmul_rn(-__logf(u01(h)), c.delta);"},
+        "grid_132x8": {"constexpr int64_t kMaxBlocks = 132 * 16;":
+                       "constexpr int64_t kMaxBlocks = 132 * 8;"},
+        "grid_a_pair_a_thread": {"constexpr int64_t kMaxBlocks = 132 * 16;":
+                                 "constexpr int64_t kMaxBlocks = INT64_MAX;"},
+    }, r"""
+extern "C" int steps_probe(int variant, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, edra_tree_kernel<kEarlyClose>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], edra_tree_kernel<kEarlyClose>, kThreads, 0);
+  out[1] = attr.numRegs; out[2] = 0; out[3] = kThreads;
+  out[4] = static_cast<int>(kMaxBlocks); out[6] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+"""),
+    # PR 17: set bits only, pairs sorted by hops in a tile, one modulo
+    "pr17": ({
+        "no_tile_sort": {"constexpr bool kSortTile = true;":
+                         "constexpr bool kSortTile = false;"},
+        "modulo_a_hop": {"constexpr bool kOneModulo = true;":
+                         "constexpr bool kOneModulo = false;"},
+        "fast_log": {"const float dly = __fmul_rn(-logf(u01(h)), c.delta);":
+                     "const float dly = __fmul_rn(-__logf(u01(h)), c.delta);"},
+        **{f"grid_waves{k}": {"constexpr int kGridWaves = 4;":
+                              f"constexpr int kGridWaves = {k};"}
+           for k in (1, 2, 64)},
+    }, r"""
+extern "C" int steps_probe(int variant, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, edra_tree_kernel<kEarlyClose>);
+  if (e == cudaSuccess) e = blocks_per_sm(kEarlyClose, &out[0]);
+  out[1] = attr.numRegs; out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = kThreads;
+  out[4] = out[0] * sm_count(); out[6] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+"""),
+}
+
+
+def popcount_order(offset):
+    """The permutation that sorts (P,) int32 offsets by popcount."""
+    import torch
+    x = offset.cpu().numpy().view(np.uint32).astype(np.uint64)
+    x = x - ((x >> np.uint64(1)) & np.uint64(0x55555555))
+    x = (x & np.uint64(0x33333333)) + ((x >> np.uint64(2))
+                                       & np.uint64(0x33333333))
+    x = (x + (x >> np.uint64(4))) & np.uint64(0x0F0F0F0F)
+    pc = ((x * np.uint64(0x01010101)) & np.uint64(0xFFFFFFFF)) >> np.uint64(24)
+    return torch.from_numpy(np.argsort(pc, kind="stable")).to(offset.device)
+
+
+def k4(dev):
+    """K4 at 2^21 pairs on rings of 10^6 +- 400 (``chip_smoke.k4_inputs``)
+    in its three variants: the kernel, the same pairs sorted by popcount
+    (what divergence costs), and each timing variant of its design, by
+    CUDA-event and device time, with integers and ack bits against the
+    plain version (variants are not gated); the launch shape first."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.edra_tree import kernel as ek
+    from repro_torch.kernels.edra_tree.ref import tree_math
+    src = build.CSRC / "edra_tree.cu"
+    which = design(src, "kSortTile", "pr17", "pr12")
+    swaps, probe_src = K4_STEPS[which]
+    libs = {"kernel": variant_library(f"k4_{which}", src, extra=probe_src)}
+    libs.update({name: variant_library(f"k4_{which}_{name}", src, sw)
+                 for name, sw in swaps.items()})
+    occ = probe(libs["kernel"], 2)
+    emit({"phase": "k4_launch", "design": which, "blocks_per_sm": occ[0],
+          "registers": occ[1], "smem_bytes": occ[2], "threads": occ[3],
+          "grid_cap": occ[4], "local_bytes": occ[6],
+          "sms": torch.cuda.get_device_properties(dev).multi_processor_count})
+    for i, (vname, kw) in enumerate(smoke.k4_variants().items()):
+        args = smoke.k4_inputs(dev, seed=smoke.SEED + i)
+        want = tree_math(*args, **kw)
+        order = popcount_order(args[0])
+        cases = {name: (lib, args, want) for name, lib in libs.items()}
+        cases["sorted_pairs"] = (libs["kernel"],
+                                 tuple(a[order] for a in args),
+                                 tuple(w[order] for w in want))
+        row = {"variant": vname, "pairs": int(args[0].numel()),
+               "hops": int(want[2].sum())}
+        for name, (lib, a, w) in cases.items():
+            with routed_to(lib):
+                got = ek.edra_tree_cuda(*a, **kw)
+                torch.cuda.synchronize()
+                fn = lambda j: ek.edra_tree_cuda(*a, **kw)  # noqa: E731
+                row[name] = {
+                    "ms": smoke.cuda_ms(fn), "device_ms": device_ms(fn),
+                    "integers_equal": all(torch.equal(g, x) for g, x in
+                                          zip(got[1:], w[1:])),
+                    "ack_not_bit_equal": int((got[0].view(torch.int32)
+                                              != w[0].view(torch.int32)).sum())}
+        gate = row["kernel"]
+        if not gate["integers_equal"] or gate["ack_not_bit_equal"]:
+            raise AssertionError(f"K4 {vname}: {gate}")
+        emit({"phase": "k4", "design": which, **row})
+        del args, want, cases
+        torch.cuda.empty_cache()
+
+
+PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4")
+
+
+def main(argv=None) -> int:
+    import torch
+    phases = list(argv if argv is not None else sys.argv[1:]) or list(PHASES)
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        print(f"chip_kernel_steps: unknown phases {unknown}; takes "
+              f"{list(PHASES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_kernel_steps: no CUDA device is available",
               file=sys.stderr)
@@ -486,11 +798,16 @@ def main() -> int:
     torch.cuda.set_device(dev)
     build.library()
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
-    k3_simt(dev, gen)
-    k2(dev)
-    if hasattr(dk, "chunk_positions"):   # the redesigned kernels
-        k3_tc(dev, gen)
-        k2_alternatives(dev)
+    redesigned = hasattr(dk, "chunk_positions")   # K3 and K2 of PR 16 on
+    for phase in PHASES:
+        if phase not in phases:
+            continue
+        if phase in ("k3_tc", "k2_alternatives") and not redesigned:
+            continue
+        if phase in ("k3_simt", "k3_tc", "k6"):
+            globals()[phase](dev, gen)
+        else:
+            globals()[phase](dev)
     print(backend.nvidia_smi_line(), flush=True)
     return 0
 

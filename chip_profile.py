@@ -14,12 +14,12 @@ without prefill chunks (its attention on K5; the window reports K5's
 share of the device time), after a warm-up admit.  Then falcon-mamba-7b
 at full width (random weights from a seed), one Replica (16 slots)
 holding 8 sessions of 128-1024 prompt tokens: one whole-prompt admit of
-1024 tokens (its scans in K6), after a warm-up admit, then 3 fused
-lockstep decode rounds.  Then one D1HT
-``simulate_churn`` of the §VII churn cell
+1024 tokens (its scans in K6; the window reports K6's share of the
+device time), after a warm-up admit, then 3 fused lockstep decode
+rounds.  Then one D1HT ``simulate_churn`` of the §VII churn cell
 (n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
 one warm-up run: its host-side event stream (also timed alone) and
-draws, K4 and the device metering.  Prints
+draws, K4 (the window reports its share) and the device metering.  Prints
 one JSON line per window: host wall time, device busy time (the union
 of the kernels' intervals), the idle share, and the ops with the most
 device time.  Needs a CUDA card; imports no jax.
@@ -148,7 +148,8 @@ def main() -> int:
                                                   dtype=np.int32))
                 for i in range(2))
     rep.admit(next(late))                # warm-up: a 1024-token scan
-    _window("ssm_admit_1024", lambda: rep.admit(next(late)), 1)
+    _window("ssm_admit_1024", lambda: rep.admit(next(late)), 1,
+            share_of="ssm_scan")
     for _ in range(2):                   # warm-up rounds
         rep.decode_round(route=route)
     _window("ssm_fused_decode_round_b16", lambda: rep.decode_round(route=route),
@@ -162,7 +163,7 @@ def main() -> int:
     _churn_event_stream(cell, np.random.default_rng(cell.seed))
     stream_ms = (time.perf_counter() - t0) * 1e3
     _window("churn_d1ht_n1e6", lambda: simulate_churn(cell, device=dev), 1,
-            host_event_stream_ms=stream_ms)
+            share_of="edra_tree", host_event_stream_ms=stream_ms)
     return 0
 
 

@@ -22,8 +22,9 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            and 2e-5 in f32 on the SIMT one, each case's route checked
            against ``kernel.route``; K5 within 2e-2 in bf16 and fp16 and
            2e-5 in f32, K6 within 1e-4), with kernel, plain, library and
-           bound times; K1, K2, K3, K5 and K7 are timed in 8 rounds of
-           turns with their library call (``in_turns``: medians, and the
+           bound times (K6 also with ``sfu_ms``, its exponentials at the
+           SFU's 16 a clock per SM); K1, K2, K3, K5 and K7 are timed in 8
+           rounds of turns with their library call (``in_turns``: medians, and the
            median and range of the rounds' ratios), K3's and K5's SDPA
            pinned to its fastest backend for those inputs (the least
            median of 5 readings in turns) and read unpinned beside it;
@@ -56,9 +57,10 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            router's, 64 K6 launches per admit, finite logits;
   churn    K4 (edra_tree) on one 2^21-pair batch at n ~ 10^6 in its three
            variants at the D1HT operating point of the cell, held
-           against its plain version (integers exactly, ack within
-           rtol 3e-5 / atol 1e-3; the count of acks not bit-equal is
-           printed), with kernel, plain and bound times; then the §VII
+           against its plain version (integers exactly, and the acks
+           bit-equal too: ``ack_not_bit_equal`` must read 0, and the
+           acks stay within rtol 3e-5 / atol 1e-3), with kernel, plain
+           and bound times; then the §VII
            churn cell, ``simulate_churn`` at n = 10^6, s_avg = 174 min,
            a 1800 s window after 300 s of warm-up, seed 1, for D1HT and
            1h-Calot: one-hop >= 0.99, equal events, Calot's bandwidth
@@ -146,6 +148,7 @@ K6_Y_REL = 1e-2                    # bf16 y: of max |y|
 # (dt*x)*B, +, h*C, the reduction's add; and per (position, channel):
 # dt*x, D*x, +
 K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
+SFU_PER_CLOCK = 16                 # exponentials a clock on each SM (Hopper)
 SSM_PROMPTS = (128, 256, 512, 1024)   # whole multiples of ssm_chunk 256
 K7_KEYS = 1 << 20
 # repro's DES <-> vectorized twin tests (tests/test_jax_sim.py): config,
@@ -811,11 +814,11 @@ def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:
     return launches
 
 
-def k6_random_inputs(dev, gen):
-    """K6 at the admit's shape on test_kernels.py's f32 distributions,
-    with a random initial state."""
+def k6_random_inputs(dev, gen, shape=K6_SHAPE):
+    """K6 at ``shape`` (the admit's by default) on test_kernels.py's f32
+    distributions, with a random initial state."""
     import torch
-    bb, l, din, n = K6_SHAPE
+    bb, l, din, n = shape
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -844,11 +847,7 @@ def k6_check(dev, x, dt, B, C, A, D, h0=None) -> dict:
                              f"h err {err_h}")
     bb, l, din = x.shape
     n = A.shape[1]
-    ins = (x, dt, B, C, A, D) + (() if h0 is None else (h0,))
-    nbytes = sum(t.numel() * t.element_size() for t in ins) \
-        + y.numel() * y.element_size() + h.numel() * 4
-    ops = bb * l * din * (K6_OPS_STATE * n + K6_OPS_CHANNEL)
-    b6, by6 = bound(nbytes, ops, FP32_FLOPS)
+    b6, by6 = k6_bound(x, dt, B, C, A, D, h0)
     return {"shape": f"Bb={bb}, L={l}, Din={din}, N={n}, x {x.dtype}",
             "max_abs_err": max(err_y, err_h), "y_max_abs_err": err_y,
             "h_max_abs_err": err_h, "y_tolerance": y_tol,
@@ -857,7 +856,33 @@ def k6_check(dev, x, dt, B, C, A, D, h0=None) -> dict:
             "ms": cuda_ms(lambda i: ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)),
             "plain_ms": cuda_ms(lambda i: ssm_scan_ref(x, dt, B, C, A, D, h0),
                                 iters=3, warmup=1),
-            "library_ms": None, "bound_ms": b6, "bound_by": by6}
+            "library_ms": None, "bound_ms": b6, "bound_by": by6,
+            "sfu_ms": sfu_ms(bb * l * din * n)}
+
+
+def k6_bound(x, dt, B, C, A, D, h0=None):
+    """K6's bound on these inputs: each input read once, y (x's type) and
+    h_last (f32) written once; K6_OPS_* f32 operations."""
+    bb, l, din = x.shape
+    n = A.shape[1]
+    ins = (x, dt, B, C, A, D) + (() if h0 is None else (h0,))
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + x.numel() * x.element_size() + bb * din * n * 4
+    ops = bb * l * din * (K6_OPS_STATE * n + K6_OPS_CHANNEL)
+    return bound(nbytes, ops, FP32_FLOPS)
+
+
+def sfu_ms(exponentials: int) -> float:
+    """The least time for this many exponentials on the SFUs: 16 a clock
+    on each SM, at the SM clock nvidia-smi gives as clocks.max.sm."""
+    import subprocess
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exponentials / (sms * SFU_PER_CLOCK * mhz * 1e6) * 1e3
 
 
 def serve_ssm_phase(dev, rng) -> dict:
@@ -987,7 +1012,8 @@ def serve_ssm_phase(dev, rng) -> dict:
             "tolerance": {"h": K6_ATOL, "y": k6["y_tolerance"]},
             "launches": launches["K6"],
             **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                        "library_ms", "bound_ms", "bound_by")}}
+                                        "library_ms", "bound_ms", "bound_by",
+                                        "sfu_ms")}}
 
 
 def k4_inputs(dev, seed: int):
@@ -1007,30 +1033,38 @@ def k4_inputs(dev, seed: int):
     return offset, n, rep, torch.from_numpy(t0.astype(np.float32)).to(dev), key
 
 
-def churn_phase(dev):
-    """K4 against its plain version, then the 10^6-peer churn cell for
-    D1HT and 1h-Calot.  Returns K4's summary row and the two results."""
-    import torch
+def k4_variants() -> dict:
+    """K4's keyword arguments in its three variants at the D1HT operating
+    point of the churn cell: unbuffered, buffered, early close."""
     from repro_torch.core.churn import ChurnConfig
-    from repro_torch.core.sim import _churn_event_stream, simulate_churn
+    from repro_torch.core.sim import _churn_event_stream
     from repro_torch.core.tuning import EdraParams
-    from repro_torch.kernels.edra_tree import ops as et_ops
-    from repro_torch.kernels.edra_tree.ref import tree_math
-
-    t_phase = time.perf_counter()
     cfg = ChurnConfig(**CHURN)
     params = EdraParams.derive(cfg.n, cfg.s_avg, cfg.f)
     t_ev = _churn_event_stream(cfg, np.random.default_rng(cfg.seed))[0]
     fill_rate = t_ev.size / (cfg.warmup + cfg.duration)
     e_cap = float(max(2.0, np.ceil(params.max_events)))
-    variants = {"unbuffered": dict(theta=0.0),
-                "buffered": dict(theta=params.theta),
-                "early_close": dict(theta=params.theta, fill_rate=fill_rate,
-                                    e_cap=e_cap)}
+    base = dict(levels=K4_LEVELS, delta_avg=70e-6, seed=cfg.seed)
+    return {"unbuffered": dict(base, theta=0.0),
+            "buffered": dict(base, theta=params.theta),
+            "early_close": dict(base, theta=params.theta,
+                                fill_rate=fill_rate, e_cap=e_cap)}
+
+
+def churn_phase(dev):
+    """K4 against its plain version, then the 10^6-peer churn cell for
+    D1HT and 1h-Calot.  Returns K4's summary row and the two results."""
+    import torch
+    from repro_torch.core.churn import ChurnConfig
+    from repro_torch.core.sim import simulate_churn
+    from repro_torch.kernels.edra_tree import ops as et_ops
+    from repro_torch.kernels.edra_tree.ref import tree_math
+
+    t_phase = time.perf_counter()
+    variants = k4_variants()
     rows = {}
-    for i, (name, vkw) in enumerate(variants.items()):
+    for i, (name, kw) in enumerate(variants.items()):
         args = k4_inputs(dev, seed=SEED + i)
-        kw = dict(levels=K4_LEVELS, delta_avg=70e-6, seed=cfg.seed, **vkw)
         got = et_ops.edra_tree(*args, **kw)
         torch.cuda.synchronize()
         want = tree_math(*args, **kw)
@@ -1039,16 +1073,19 @@ def churn_phase(dev):
             if not torch.equal(g, w):
                 raise AssertionError(f"K4 {name}: {what} differs from plain")
         err = float((got[0] - want[0]).abs().max())
-        if not torch.allclose(got[0], want[0], rtol=K4_RTOL, atol=K4_ATOL):
-            raise AssertionError(f"K4 {name}: ack off by up to {err}")
+        not_equal = int((got[0].view(torch.int32)
+                         != want[0].view(torch.int32)).sum())
+        if not_equal or not torch.allclose(got[0], want[0], rtol=K4_RTOL,
+                                           atol=K4_ATOL):
+            raise AssertionError(f"K4 {name}: {not_equal} acks not "
+                                 f"bit-equal, off by up to {err}")
         hops = int(got[2].sum())
-        variant = 0 if vkw["theta"] <= 0 else 2 if "fill_rate" in vkw else 1
+        variant = 0 if kw["theta"] <= 0 else 2 if "fill_rate" in kw else 1
         ops = K4_PAIRS * (K4_OPS_PAIR + K4_LEVELS * K4_OPS_LEVEL) \
             + hops * K4_OPS_HOP[variant]
         b, by = bound(K4_PAIRS * 40, ops, FP32_FLOPS)
         rows[name] = {
-            "max_abs_err": err, "ack_not_bit_equal": int(
-                (got[0].view(torch.int32) != want[0].view(torch.int32)).sum()),
+            "max_abs_err": err, "ack_not_bit_equal": not_equal,
             "hops": hops, "operations": ops,
             "ms": cuda_ms(lambda j: et_ops.edra_tree(*args, **kw)),
             "plain_ms": cuda_ms(lambda j: tree_math(*args, **kw), iters=3,
@@ -1056,9 +1093,11 @@ def churn_phase(dev):
             "bound_ms": b, "bound_by": by}
         del args, got, want
     torch.cuda.empty_cache()
+    ec = variants["early_close"]
     emit({"phase": "churn_k4", "pairs": K4_PAIRS, "levels": K4_LEVELS,
-          "theta": params.theta, "fill_rate": fill_rate, "e_cap": e_cap,
-          "delta_avg": 70e-6, "variants": rows})
+          "theta": ec["theta"], "fill_rate": ec["fill_rate"],
+          "e_cap": ec["e_cap"], "delta_avg": ec["delta_avg"],
+          "variants": rows})
 
     runs = {}
     for proto in ("d1ht", "calot"):

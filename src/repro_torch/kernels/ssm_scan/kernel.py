@@ -14,7 +14,7 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_STATE = 32          # the N states of a channel share one warp
+MAX_STATE = 32          # the kernel's shared-memory tiles hold 32 states
 
 
 def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,

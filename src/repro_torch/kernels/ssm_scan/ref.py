@@ -4,9 +4,11 @@
     y_t = h_t . C_t + D * x_t
 
 The recurrence of ``repro/kernels/ssm_scan/ref.py``: one step per
-position, all maths in f32, y in x's dtype, h_last in f32.  Each step
-rounds as the CUDA kernel does (``dt*A``, ``exp``, ``dt*x``, ``*B``,
-``da*h``, ``+``), so the two agree on h to the last bits on the card.
+position, all maths in f32, y in x's dtype, h_last in f32.  The CUDA
+kernel computes the same recurrence as a scan over segments of the
+sequence, with ``2^(dt * A log2 e)`` on the card's SFU, so its sums come
+in another order and its exponentials differ in the last bits: the two
+agree within repro's 1e-4, not bit for bit.
 """
 from __future__ import annotations
 

@@ -505,8 +505,9 @@ def _scan_inputs(bb, l, din, n, dtype, cuda, seed):
     (1, 3, 40, 32),
 ])
 def test_ssm_scan_kernel_equals_plain(cuda, dtype, with_h0, bb, l, din, n):
-    """h_last within repro's 1e-4 (f32 maths, one rounding per step in
-    both); y within 1e-4 in f32, and within 2 bf16 ulps in bf16."""
+    """h_last within repro's 1e-4 (f32 maths in both; the kernel's scan
+    over segments sums in another order and takes its exponentials on
+    the SFU); y within 1e-4 in f32, and within 2 bf16 ulps in bf16."""
     x, dt, B, C, A, D, h0 = _scan_inputs(bb, l, din, n, dtype, cuda,
                                          seed=l * din + n)
     h0 = h0 if with_h0 else None
@@ -516,6 +517,59 @@ def test_ssm_scan_kernel_equals_plain(cuda, dtype, with_h0, bb, l, din, n):
     assert ssm_ops.ssm_scan.launches == before + 1
     wy, wh = ssm_ref.ssm_scan_ref(x, dt, B, C, A, D, h0)
     assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(h, wh, atol=1e-4, rtol=0)
+    atol = 1e-4 if dtype == torch.float32 else 2 ** -6 * max(
+        1.0, float(wy.float().abs().max()))
+    torch.testing.assert_close(y.float(), wy.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("l,din,n", [
+    (1, 40, 1),                 # one position: a tile of padding
+    (127, 300, 5),              # a tile short of two, ragged Din and N
+    (1024, 96, 16),             # the admit's length
+    (1025, 33, 32),             # one past 16 tiles, one channel past a block
+    (2049, 64, 16),             # 32 tiles and one position
+])
+def test_ssm_scan_kernel_across_tiles(cuda, dtype, with_h0, l, din, n):
+    """The scan over segments and tiles at lengths off and on the tile
+    grid, ragged channel blocks, N from 1 to 32: h_last within 1e-4, y
+    within 1e-4 in f32 and 2 bf16 ulps of max |y| in bf16 and fp16."""
+    x, dt, B, C, A, D, h0 = _scan_inputs(1, l, din, n, dtype, cuda,
+                                         seed=l + din + n)
+    h0 = h0 if with_h0 else None
+    y, h = ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)
+    torch.cuda.synchronize()
+    wy, wh = ssm_ref.ssm_scan_ref(x, dt, B, C, A, D, h0)
+    assert y.dtype == dtype and h.shape == (1, din, n)
+    torch.testing.assert_close(h, wh, atol=1e-4, rtol=0)
+    atol = 1e-4 if dtype == torch.float32 else 2 ** -6 * max(
+        1.0, float(wy.float().abs().max()))
+    torch.testing.assert_close(y.float(), wy.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_on_unaligned_views(cuda, dtype):
+    """Contiguous views one element into their storage are not 16-byte
+    aligned: the kernel stages them with plain loads, not cp.async, and
+    gives the same answer."""
+    l, din, n = 200, 64, 16
+    x, dt, B, C, A, D, h0 = _scan_inputs(1, l, din, n, dtype, cuda, seed=5)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+    args = [shifted(t) for t in (x, dt, B, C)] + [A, D, h0]
+    y, h = ssm_ops.ssm_scan(*args)
+    wy, wh = ssm_ref.ssm_scan_ref(x, dt, B, C, A, D, h0)
+    torch.cuda.synchronize()
     torch.testing.assert_close(h, wh, atol=1e-4, rtol=0)
     atol = 1e-4 if dtype == torch.float32 else 2 ** -6 * max(
         1.0, float(wy.float().abs().max()))
@@ -604,6 +658,27 @@ def test_edra_tree_kernel_equals_plain(cuda, variant, n, levels):
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g, w)
     torch.testing.assert_close(got[0], want[0], rtol=3e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", range(3))
+@pytest.mark.parametrize("p,n,levels", [
+    (70_001, 1000, 10), (70_001, 1_000_000, 20),
+    (70_001, 2**32 - 5, 32),    # rep + cur wraps: the per-hop modulo
+    (1, 1_000_000, 20),         # one pair
+    (300, 1_000_000, 20),       # a tile and a ragged one
+])
+def test_edra_tree_acks_bit_equal(cuda, variant, p, n, levels):
+    """Every output bit-equal to the plain version, acks included (the
+    kernel's float steps are tree_math's, one rounding each)."""
+    args = _edra_pairs(p, n, cuda, seed=7 + variant)
+    kw = dict(levels=levels, delta_avg=7e-5, seed=3, **EDRA_VARIANTS[variant])
+    got = et_ops.edra_tree(*args, **kw)
+    torch.cuda.synchronize()
+    want = et_ref.tree_math(*args, **kw)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
