@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What holds K3 (decode attention), K2 (bucketed ring lookup), K6
-(selective scan) and K4 (EDRA tree) back, and what each step of their
-redesign buys, on one card.
+(selective scan), K4 (EDRA tree) and K7 (single-word ring lookup) back,
+and what each step of their redesign buys, on one card.
 
     python3 chip_kernel_steps.py [phase ...]     # all phases by default
 
@@ -62,7 +62,14 @@ layer's cache is cold:
             ``__logf``, grid caps; the PR 17 design's unsorted tiles, the
             modulo at every hop, ``__logf``, grids of 1 to 64 waves of
             resident blocks), integers and ack bits against the plain
-            version (only the kernel is gated); first the launch shape.
+            version (only the kernel is gated); first the launch shape;
+  k7        K7 on the sorted high words of the 10^6 peer ids, Q 2^20 and
+            the quickstart's Q 4096, and timing cuts: all keys equal (every
+            probe an L1 hit), a 4096-word table, and each timing variant of
+            its design (``K7_STEPS``; the first design's search cut 10 levels
+            early); then Q 256 to 2^20 on each route the launcher has,
+            which places its crossover; each case against numpy's bisect
+            (only the kernel is gated); first the launch shape.
 
 The phases read which design the checkout holds from its sources, so the
 script also measures a parent's kernels when copied into its tree.
@@ -777,7 +784,186 @@ def k4(dev):
         torch.cuda.empty_cache()
 
 
-PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4")
+# -- K7 (single-word ring lookup) ---------------------------------------------
+
+K7_SWEEP = (256, 1024, 4096, 16384, 65536, 1 << 17, 1 << 18, 1 << 20)
+# lines of the redesign's source that its timing variants replace
+K7_COPY = """  {
+    constexpr int kCopies = (kK7Sample + 1) / 4 / kK7Threads;
+    const uint4* src = reinterpret_cast<const uint4*>(compact);
+    uint4 v[kCopies];
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) v[j] = src[threadIdx.x + j * kK7Threads];
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) tree4[threadIdx.x + j * kK7Threads] = v[j];
+  }
+"""
+K7_BELOW = "  const auto below = [&](int32_t j) { return table[j] < key; };\n"
+K7_SECOND_WINDOWS = (
+    "    w0 -= kK7Window;                   // the aligned window before it "
+    "(>= 0:\n"
+    "    wn = kK7Window;                    // w0 > lo + 1 >= 1, a multiple)\n"
+    "    in = window_below<kVec>(table, wn, key, w0);\n",
+    "    w0 += kK7Window;                   // the aligned window after it "
+    "(wn was\n"
+    "    wn = min(kK7Window, n - w0);       // kK7Window, so w0 + wn < hi <= "
+    "N)\n"
+    "    in = window_below<kVec>(table, wn, key, w0);\n")
+K7_STEPS = {
+    # the first design: a thread a key, one branchless lower bound over
+    # the N words
+    "one_level": ({
+        # timing only: the search stops 10 levels early (a segment of
+        # ~1024 words is left unsearched), so only the top levels' L1 hits
+        # and ~10 dependent probes are paid
+        "cut_last10": {"  while (len > 1) {": "  while (len > 1024) {"},
+    }, r"""
+extern "C" int steps_probe(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, ring_lookup32_kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], ring_lookup32_kernel, kThreads, 0);
+  out[1] = attr.numRegs; out[2] = 0; out[3] = kThreads;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+"""),
+    # the redesign: a shared-memory sample tree, an interpolated window,
+    # one level at small Q (``k7`` also runs the kernel pinned to each
+    # route, ``route_one_level`` and ``route_sampled``)
+    "sample_tree": ({
+        # each block gathers the tree from the table at stride s itself
+        # (no tree kernel, no compact scratch)
+        "fill_strided": {
+            K7_COPY: "  for (int32_t k = threadIdx.x; k <= kK7Sample; "
+                     "k += blockDim.x)\n"
+                     "    reinterpret_cast<uint32_t*>(tree4)[k] = "
+                     "tree_node(table, k, ((n - 1) >> shift) + 1, shift);\n",
+            "  ring_lookup32_tree_kernel<<<(kK7Sample + 256) / 256, 256, 0, "
+            "st>>>(t, samp, m, shift);\n": ""},
+        # the segment's lower bound straight after the tree (no window)
+        "no_window": {K7_BELOW: K7_BELOW + "  if (n > 0)   // always\n"
+                      "    return lo + 1 + count_below(hi - lo - 1, [&]"
+                      "(int32_t j) { return below(lo + 1 + j); });\n"},
+        # the lower bound where the first window misses (no neighbour)
+        "one_window": {line: "" for line in K7_SECOND_WINDOWS},
+        "window16": {"constexpr int kK7Window = 8;":
+                     "constexpr int kK7Window = 16;"},
+        "sample8191": {"constexpr int kK7Levels = 15;":
+                       "constexpr int kK7Levels = 13;",
+                       "constexpr int kK7Sample = 32767;":
+                       "constexpr int kK7Sample = 8191;"},
+    }, r"""
+extern "C" int steps_probe(int n, int* out) {
+  int shift = 0;
+  while ((static_cast<int64_t>(kK7Sample) << shift) < n) ++shift;
+  const int m = ((n - 1) >> shift) + 1;
+  const int smem = (kK7Sample + 1) * static_cast<int>(sizeof(uint32_t));
+  cudaFuncAttributes attr;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = k7_prepare<true>(device);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, ring_lookup32_sampled_kernel<true>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], ring_lookup32_sampled_kernel<true>, kK7Threads, smem);
+  out[1] = attr.numRegs; out[2] = smem; out[3] = kK7Threads;
+  out[4] = 1 << shift; out[5] = m; out[6] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+"""),
+}
+
+
+def k7_inputs():
+    """K7's table, the sorted high words of chip_smoke's 10^6 peer ids
+    (duplicates kept), and its 2^20 keys from the same numpy seeds."""
+    rng = np.random.default_rng(smoke.SEED)
+    ids = np.unique(rng.integers(0, 2**64, size=smoke.N_PEERS + 4096,
+                                 dtype=np.uint64))
+    ids = ids[rng.permutation(ids.size)[:smoke.N_PEERS]]
+    table = np.sort((ids >> np.uint64(32)).astype(np.uint32))
+    keys = np.random.default_rng(smoke.SEED + 7).integers(
+        0, 2**32, smoke.K7_KEYS, dtype=np.uint32)
+    return table, keys
+
+
+def k7(dev):
+    """K7 at Q 2^20 on the 10^6 ids' high words and at the quickstart's Q
+    4096, then timing cuts: all keys equal (every probe an L1 hit), a
+    table of 4096 words, and each timing variant of the design
+    (``K7_STEPS``), by CUDA-event and device time, each against numpy's
+    bisect (only the kernel is gated); then Q from 256 to 2^20 on each
+    route the design has (the redesign's kernel pinned to each route,
+    ``route_one_level`` and ``route_sampled``), which places the
+    wrapper's crossover.  The launch shape first."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ring_lookup import kernel as rk
+    src = build.CSRC / "ring_lookup.cu"
+    which = design(src, "ring_lookup_sampled_launch", "sample_tree",
+                   "one_level")
+    swaps, probe_src = K7_STEPS[which]
+    libs = {"kernel": variant_library(f"k7_{which}", src, extra=probe_src)}
+    libs.update({name: variant_library(f"k7_{which}_{name}", src, sw)
+                 for name, sw in swaps.items()})
+    # name -> (library, route handed to the launcher; None: the wrapper's)
+    runs = {name: (lib, None) for name, lib in libs.items()}
+    if which == "sample_tree":
+        runs.update({f"route_{r}": (libs["kernel"], r) for r in rk.K7_ROUTES})
+
+    def call(kt, tt, route):
+        return rk.ring_lookup_cuda(kt, tt, *(() if route is None
+                                             else (route,)))
+    table, keys = k7_inputs()
+    occ = probe(libs["kernel"],
+                *((table.size,) if which == "sample_tree" else ()))
+    emit({"phase": "k7_launch", "design": which, "blocks_per_sm": occ[0],
+          "registers": occ[1], "smem_bytes": occ[2], "threads": occ[3],
+          "stride": occ[4], "samples": occ[5], "local_bytes": occ[6],
+          "sms": torch.cuda.get_device_properties(dev).multi_processor_count})
+    small = np.sort(table[::table.size // 4096][:4096])
+    cases = {"q2^20": (keys, table, 0), "q4096": (keys[:4096], table, 0),
+             "equal_keys_q2^20": (np.full(keys.size, keys[0]), table, 0),
+             "table4096_q2^20": (keys, small, 0),
+             "table_off_by_4_bytes_q2^20": (keys, table, 1)}
+
+    def words(a, offset=0):
+        buf = np.zeros(a.size + offset, np.uint32)
+        buf[offset:] = a
+        return torch.from_numpy(buf.view(np.int32)).to(dev)[offset:]
+    for case, (ks, tb, offset) in cases.items():
+        kt, tt = words(ks), words(tb, offset)
+        want = np.searchsorted(tb, ks, side="left") % tb.size
+        row = {"case": case, "Q": int(ks.size), "N": int(tb.size)}
+        for name, (lib, route) in runs.items():
+            with routed_to(lib):
+                got = call(kt, tt, route)
+                torch.cuda.synchronize()
+                fn = lambda i: call(kt, tt, route)  # noqa: E731
+                row[name] = {"ms": smoke.cuda_ms(fn),
+                             "device_ms": device_ms(fn),
+                             "equal": bool(np.array_equal(got.cpu().numpy(),
+                                                          want))}
+        if not row["kernel"]["equal"]:
+            raise AssertionError(f"K7 {case}: differs from numpy's bisect")
+        emit({"phase": "k7", "design": which, **row})
+    routes = {name: run for name, run in runs.items()
+              if name == "kernel" or name.startswith("route_")}
+    tt = words(table)
+    for q in K7_SWEEP:
+        kt = words(keys[:q])
+        row = {"Q": q}
+        for name, (lib, route) in routes.items():
+            with routed_to(lib):
+                row[name] = device_ms(
+                    lambda i: call(kt, tt, route))  # noqa: B023
+        emit({"phase": "k7_sweep", "design": which, **row})
+
+
+PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4", "k7")
 
 
 def main(argv=None) -> int:

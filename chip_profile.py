@@ -11,7 +11,10 @@ more admit, then, with the replica filled to its 32 slots, 5 fused
 rounds of the full house (both decode windows report K3's share of the
 device time), then one whole-prompt admit of 1024 tokens on a Replica
 without prefill chunks (its attention on K5; the window reports K5's
-share of the device time), after a warm-up admit.  Then falcon-mamba-7b
+share of the device time), after a warm-up admit.  Then internlm2-20b
+at full size (48 layers, 48 query heads over 8 kv heads), one Replica (16
+slots, 2048 positions) holding 16 sessions of 128-1024 prompt tokens: 5
+fused decode rounds (K3's share, at g = 6).  Then falcon-mamba-7b
 at full width (random weights from a seed), one Replica (16 slots)
 holding 8 sessions of 128-1024 prompt tokens: one whole-prompt admit of
 1024 tokens (its scans in K6; the window reports K6's share of the
@@ -134,6 +137,21 @@ def main() -> int:
     _window("whole_prompt_admit_1024", lambda: whole.admit(next(admits)), 1,
             share_of="flash_")
     del whole, params, model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("internlm2-20b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    rep = Replica(model, slots=16, max_len=2048, prefill_chunk=256, device=dev)
+    rep.attach_params(params)
+    for i, n in enumerate(rng.integers(128, 1025, size=16)):
+        rep.admit(Request(f"dense-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                     dtype=np.int32)))
+    for _ in range(2):                   # warm-up rounds
+        rep.decode_round(route=route)
+    _window("internlm2_fused_decode_round_b16",
+            lambda: rep.decode_round(route=route), 5, share_of="decode_")
+    del rep, params, model
     torch.cuda.empty_cache()
 
     cfg = get_config("falcon-mamba-7b")

@@ -47,6 +47,19 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            decodes 8 rounds; its first tokens and last-position logits
            against the chunked path's are printed, not gated (the
            chunked path rounds p to bf16, K5 keeps it in f32);
+  serve_dense  the rest of the dense family on the serve path
+           (``DENSE_SERVE``): internlm2-20b at full size (48 layers, d 6144,
+           48/8 heads, 19.86 B parameters; four Replicas of 16 slots x
+           2048 positions, 16 requests, 16 rounds), nemotron-4-15b (relu2,
+           two-matrix MLP, 256,000-token vocabulary) and command-r-35b at
+           full width with depth cut to 8 layers (8 requests, 8 rounds).
+           Counters zeroed before each model and read after it: owners
+           against a numpy bisect, fused tokens equal to unfused, K2 one
+           launch a fused replica round, K3 one a layer and replica round,
+           all on the tensor cores (g = 6 and 8), a chunked prefill
+           probe's first token the fused stream's, then 4 whole-prompt
+           admits on K5 (one tensor-core launch a layer and admit); peak
+           memory, decode ms per round and prefill tokens/s printed;
   serve_ssm  falcon-mamba-7b at full width and depth (64 layers, d 4096,
            d_inner 8192, state 16, random weights from the seed): K6 on
            layer 0's own scan inputs for a 1024-token prompt (h_last
@@ -74,10 +87,16 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
   k7       K7 (ring_lookup, single-word) on the sorted uint32 high words of
            the route phase's 10^6 peer ids (duplicates kept) and 2^20 keys
            from a numpy seed: equal to its plain version and to numpy's
-           searchsorted(..., "left") % N, exactly; boundary keys (0,
+           searchsorted(..., "left") % N, exactly, on both routes (one
+           level up to the crossover Q, the shared-memory sample tree
+           above): each case on the wrapper's route (``kernel.k7_route``,
+           whose counter must move) and on the other through its
+           launcher; Q 2^20, 4096, the crossover and one past it, a
+           table view 4 bytes off a 16-byte boundary; boundary keys (0,
            2^32 - 1, every entry and its neighbours) on that table and on
-           tables of N = 1 and N = 7; an empty table raises LookupError;
-           kernel, plain, torch.searchsorted (in turns) and bound times;
+           tables of N = 1 and N = 7; an empty table raises
+           LookupError; kernel, plain, torch.searchsorted (in turns) and
+           bound times at Q 2^20 and at the quickstart's Q 4096;
   quickstart  ``repro_torch.quickstart``'s five steps on the card: step 5
            makes exactly one K7 launch (counter zeroed just before), and
            its indices equal the plain version's on the CPU;
@@ -151,6 +170,14 @@ K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
 SFU_PER_CLOCK = 16                 # exponentials a clock on each SM (Hopper)
 SSM_PROMPTS = (128, 256, 512, 1024)   # whole multiples of ssm_chunk 256
 K7_KEYS = 1 << 20
+# the rest of the dense family (arch, depth or None for the full model,
+# slots a replica, requests, rounds fused and unfused, whole-prompt admits):
+# internlm2-20b at full size (37.0 GiB of bf16 weights, 24 GiB of KV for
+# 4 x 16 x 2048 positions); nemotron-4-15b and command-r-35b at full width,
+# depth cut to 8 layers (full depth: 29.1 and 60.3 GiB of weights)
+DENSE_SERVE = [("internlm2-20b", None, 16, 16, 16, 4),
+               ("nemotron-4-15b", 8, 16, 8, 8, 4),
+               ("command-r-35b", 8, 16, 8, 8, 4)]
 # repro's DES <-> vectorized twin tests (tests/test_jax_sim.py): config,
 # bandwidth-ratio band, largest one-hop gap
 DES_TWIN = {
@@ -309,6 +336,20 @@ def k2_bound(keys, occ):
     nbytes = keys.size * 16 + rows.size * 4 + 2 * 32 * int(sectors.sum())
     probes = np.ceil(np.log2(np.minimum(occ[b].astype(np.int64) + 1, 128)))
     return bound(nbytes, 3 * float((probes + 1).sum()), FP32_FLOPS)
+
+
+def k7_bound(keys, table):
+    """K7's bound for uint32 ``keys`` on the sorted ``table``: each key in
+    and its index out (8 B), and the words the answer depends on once
+    (the count c needs table[c - 1] < key <= table[c]: the 32-byte sectors
+    holding those words, distinct over the keys, at most the whole table);
+    operations, a lower bound's probes over the N words, 3 a probe."""
+    n = table.size
+    c = np.searchsorted(table, keys, side="left").astype(np.int64)
+    words = np.concatenate([c - 1, c])
+    sectors = np.unique(words[(words >= 0) & (words < n)] // 8).size
+    return bound(keys.size * 8 + min(n * 4, sectors * 32),
+                 keys.size * (math.ceil(math.log2(n)) + 1) * 3, FP32_FLOPS)
 
 
 def main() -> int:
@@ -647,35 +688,8 @@ def main() -> int:
                         router.route([r.session_id for r in reqs])))
 
     def run(fused: bool):
-        reps = {}
-        for node in mem.members():
-            reps[node] = Replica(model, slots=32, max_len=2048,
-                                 prefill_chunk=256, device=dev)
-            reps[node].attach_params(params)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        streams = {r.session_id: [reps[owner_of[r.session_id]].admit(r)]
-                   for r in reqs}
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        replica_rounds, round_ms = 0, []
-        for _ in range(32):
-            t0 = time.perf_counter()
-            for node, rep in reps.items():
-                if not rep.sessions:
-                    continue
-                route = mem.ring_state.device_bucket_table() if fused else None
-                for sid, tok in rep.decode_round(route=route).items():
-                    streams[sid].append(tok)
-                replica_rounds += 1
-                if fused and any(rep.routed_owners[s] != owner_of[s]
-                                 or owner_of[s] != node for s in rep.sessions):
-                    raise AssertionError("a fused round routed off-owner")
-            round_ms.append((time.perf_counter() - t0) * 1e3)
-        buckets = sorted(len(rep.sessions) for rep in reps.values())
-        del reps
-        torch.cuda.empty_cache()
-        return streams, prefill_s, round_ms, replica_rounds, buckets
+        return serve_rounds(model, params, mem, reqs, owner_of, dev,
+                            slots=32, rounds=32, fused=fused)
 
     k3_before = da_ops.decode_attention.launches
     fused = run(True)
@@ -733,6 +747,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     for key in ("K1", "K2", "K3"):
         results[key]["launches"] = launches[key]
+    dense = serve_dense_phase(dev, rng)
+    for key in ("K1", "K2", "K3", "K5"):
+        results[key]["launches_serve_dense"] = {
+            arch: counts[key] for arch, counts in dense.items()}
     results["K6"] = serve_ssm_phase(dev, rng)
     results["K4"], churn = churn_phase(dev)
     latency_phase(dev, churn)
@@ -747,12 +765,176 @@ def main() -> int:
     return 0
 
 
+def serve_rounds(model, params, mem, reqs, owner_of, dev, *, slots: int,
+                 rounds: int, fused: bool):
+    """One ``Replica`` (``slots`` x 2048 positions, 256-token prefill
+    chunks) on each ``Membership`` node; each request admitted on its
+    routed owner, then ``rounds`` cluster rounds, fused (each replica
+    round resolves its sessions' owners on K2 and must find itself) or
+    not.  Returns (streams, prefill s, ms per cluster round, replica
+    rounds, sessions per replica)."""
+    import torch
+    from repro_torch.serve import Replica
+    reps = {}
+    for node in mem.members():
+        reps[node] = Replica(model, slots=slots, max_len=2048,
+                             prefill_chunk=256, device=dev)
+        reps[node].attach_params(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = {r.session_id: [reps[owner_of[r.session_id]].admit(r)]
+               for r in reqs}
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    replica_rounds, round_ms = 0, []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for node, rep in reps.items():
+            if not rep.sessions:
+                continue
+            route = mem.ring_state.device_bucket_table() if fused else None
+            for sid, tok in rep.decode_round(route=route).items():
+                streams[sid].append(tok)
+            replica_rounds += 1
+            if fused and any(rep.routed_owners[s] != owner_of[s]
+                             or owner_of[s] != node for s in rep.sessions):
+                raise AssertionError("a fused round routed off-owner")
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    buckets = sorted(len(rep.sessions) for rep in reps.values())
+    del reps
+    torch.cuda.empty_cache()
+    return streams, prefill_s, round_ms, replica_rounds, buckets
+
+
+def serve_dense_phase(dev, rng) -> dict:
+    """The rest of the dense family on the path the qwen serve phase runs
+    (``DENSE_SERVE``): each model at full width from seeded random
+    weights, four ``Membership`` nodes with one ``Replica`` each, its
+    requests routed (owners against a numpy bisect), ``rounds`` cluster
+    rounds fused then unfused, tokens equal; K2 one launch a fused replica
+    round, K3 one a layer and replica round, all on the tensor cores; then
+    the first ``whole`` requests admitted whole on K5 (one tensor-core
+    launch a layer and admit), and a chunked prefill probe whose first
+    token must be the fused stream's.  Counters are zeroed just before
+    each model's run and read just after.  Returns each model's launches
+    by kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    from repro_torch.models import Model
+    from repro_torch.runtime import Membership
+    from repro_torch.serve import Request, SessionRouter
+    from repro_torch.serve.server import session_key
+    out = {}
+    for arch, layers, slots, n_req, rounds, whole in DENSE_SERVE:
+        full = get_config(arch)
+        cfg = full if layers is None else full.with_overrides(
+            num_layers=layers)
+        model = Model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+        for i in range(4):
+            mem.request_join(f"10.3.0.{i}", 9000)
+        router = SessionRouter(mem)
+        reqs = [Request(f"{arch}-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                    dtype=np.int32), rounds)
+                for i, n in enumerate(rng.integers(128, 1025, size=n_req))]
+        counters = (rl_ops.ring_lookup64, rl_ops.ring_lookup_bucketed,
+                    da_ops.decode_attention, fa_ops.flash_attention)
+        for fn in counters:
+            fn.launches = 0
+        da_ops.decode_attention.tc_launches = 0
+        sids = [r.session_id for r in reqs]
+        owner_of = dict(zip(sids, router.route(sids)))
+        act = mem.ring_state.active_ids()
+        keys = np.array([session_key(sid) for sid in sids], np.uint64)
+        want = act[np.searchsorted(act, keys) % act.size]
+        if [owner_of[sid] for sid in sids] != [int(w) for w in want]:
+            raise AssertionError(f"{arch}: routed owners differ from a "
+                                 "numpy bisect")
+        fused = serve_rounds(model, params, mem, reqs, owner_of, dev,
+                             slots=slots, rounds=rounds, fused=True)
+        k2_fused = rl_ops.ring_lookup_bucketed.launches
+        unfused = serve_rounds(model, params, mem, reqs, owner_of, dev,
+                               slots=slots, rounds=rounds, fused=False)
+        launches = {"K1": rl_ops.ring_lookup64.launches,
+                    "K2": rl_ops.ring_lookup_bucketed.launches,
+                    "K3": da_ops.decode_attention.launches,
+                    "K3_tc": da_ops.decode_attention.tc_launches}
+        if fused[0] != unfused[0]:
+            raise AssertionError(f"{arch}: fused and unfused token streams "
+                                 "differ")
+        toks = np.array([t for st in fused[0].values() for t in st])
+        if toks.min() < 0 or toks.max() >= cfg.vocab \
+                or any(len(st) != rounds + 1 for st in fused[0].values()):
+            raise AssertionError(f"{arch}: tokens out of range or streams "
+                                 "cut short")
+        rr = fused[3] + unfused[3]
+        if k2_fused != fused[3] or launches["K2"] != fused[3] \
+                or launches["K3"] != cfg.num_layers * rr \
+                or launches["K3_tc"] != launches["K3"] or launches["K1"] < 1:
+            raise AssertionError(f"{arch}: launch counts {launches} off the "
+                                 "main path")
+        probe = reqs[0]
+        cache = model.init_cache(1, 2048, device=dev)
+        seg = np.zeros(256 * math.ceil(len(probe.prompt) / 256), np.int32)
+        seg[:len(probe.prompt)] = probe.prompt
+        for off in range(0, seg.size, 256):
+            logits, cache = model.prefill_chunk(
+                params, torch.from_numpy(seg[off:off + 256]).to(dev)[None],
+                cache, off)
+        last = logits[0, (len(probe.prompt) - 1) % 256]
+        if not bool(torch.isfinite(logits).all()) \
+                or int(torch.argmax(last)) != fused[0][probe.session_id][0]:
+            raise AssertionError(f"{arch}: prefill logits not finite / first "
+                                 "token differs")
+        del cache, logits, last
+        k5 = whole_prompt_admits(model, params, reqs[:whole], fused[0], dev)
+        launches["K5"] = k5
+        prompt_tokens = sum(len(r.prompt) for r in reqs)
+        emit({"phase": "serve_dense", "model": cfg.name, "params": n_params,
+              "layers": cfg.num_layers, "full_layers": full.num_layers,
+              "cut": None if layers is None else
+              f"depth {full.num_layers} -> {layers} layers, full width",
+              "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                                cfg.num_kv_heads],
+              "d_ff": cfg.d_ff, "vocab": cfg.vocab, "act": cfg.act,
+              "init_s": init_s, "slots": slots, "requests": n_req,
+              "sessions_per_replica": fused[4], "replica_rounds": fused[3],
+              "prompt_tokens": prompt_tokens,
+              "prefill_tokens_per_s": {"fused": prompt_tokens / fused[1],
+                                       "unfused": prompt_tokens / unfused[1]},
+              "decode_ms_per_round": {
+                  "fused_mean": float(np.mean(fused[2][1:])),
+                  "unfused_mean": float(np.mean(unfused[2][1:])),
+                  "fused_first": fused[2][0]},
+              "launches": launches, "tokens_equal": True,
+              "owners_equal_numpy_bisect": True,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "max_memory_allocated_gib":
+                  torch.cuda.max_memory_allocated() / 2**30})
+        out[cfg.name] = launches
+        del params, model, mem, router
+        torch.cuda.empty_cache()
+    return out
+
+
 def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:
-    """qwen2.5-3b admits whole prompts (``prefill_chunk=None``): the
-    prefill attention runs on K5, 36 launches an admit.  Returns K5's
-    launches in that run.  First tokens and last-position logits are
-    compared with the chunked path, which rounds p to bf16 where K5 keeps
-    it in f32: reported, not gated."""
+    """A dense model admits whole prompts (``prefill_chunk=None``): the
+    prefill attention runs on K5, one tensor-core launch a layer and
+    admit.  Returns K5's launches in that run.  First tokens and
+    last-position logits are compared with the chunked path, which rounds
+    p to bf16 where K5 keeps it in f32: reported, not gated."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.serve import Replica
@@ -1187,34 +1369,65 @@ def latency_phase(dev, churn) -> None:
 
 def k7_phase(dev, ids) -> dict:
     """K7 on the sorted high words of the 10^6 peer ids against its plain
-    version and numpy, the boundary and small-table cases, the empty
-    table; times and bound.  Returns K7's row (launches set later, from
-    the quickstart's run)."""
+    version and numpy on both routes (``kernel.k7_route`` picks one level
+    up to ``K7_SAMPLE_KEYS`` keys, the shared-memory sample tree above;
+    each case runs on both), the boundary and small-table cases, a table
+    view off a 16-byte boundary, the empty table; times in turns against
+    ``torch.searchsorted`` at Q 2^20 and at the quickstart's Q 4096, and
+    bounds.  Returns K7's row (launches set later, from the quickstart's
+    run)."""
     import torch
+    from repro_torch.kernels.ring_lookup import kernel as rl_kernel
     from repro_torch.kernels.ring_lookup import ops as rl_ops
     from repro_torch.kernels.ring_lookup.ref import ring_lookup_ref
 
-    def dev_words(words):
-        return torch.from_numpy(np.ascontiguousarray(words, np.uint32)
-                                .view(np.int32)).to(dev)
+    def dev_words(words, offset=0):
+        buf = np.zeros(words.size + offset, np.uint32)
+        buf[offset:] = words
+        return torch.from_numpy(buf.view(np.int32)).to(dev)[offset:]
 
-    def check(keys_np, table_np, what):
-        kt, tt = dev_words(keys_np), dev_words(table_np)
-        got = rl_ops.ring_lookup(kt, tt)
+    fn7 = rl_ops.ring_lookup
+    routes = {}
+
+    def check(keys_np, table_np, what, offset=0):
+        """The wrapper's route for this Q (its counter moves by one), then
+        the other route through the launcher directly (no count): both
+        equal the plain version and numpy."""
+        kt, tt = dev_words(keys_np), dev_words(table_np, offset)
+        route = rl_kernel.k7_route(keys_np.size)
+        other, = set(rl_kernel.K7_ROUTES) - {route}
+        before = fn7.one_level_launches, fn7.sampled_launches
+        got = fn7(kt, tt)
+        moved = (fn7.one_level_launches - before[0],
+                 fn7.sampled_launches - before[1])
+        if moved != ((1, 0) if route == "one_level" else (0, 1)):
+            raise AssertionError(f"K7 {what}: route counters moved {moved}")
+        also = rl_kernel.ring_lookup_cuda(kt, tt, other)
         torch.cuda.synchronize()
         plain = ring_lookup_ref(kt, tt)
         want = np.searchsorted(table_np, keys_np, side="left") % table_np.size
-        err = int((got.long() - plain.long()).abs().max()) if got.numel() else 0
-        if err or not np.array_equal(got.cpu().numpy(), want):
-            raise AssertionError(f"K7 {what}: disagrees with its plain "
-                                 "version / numpy")
+        err = 0
+        for name, out in ((route, got), (other, also)):
+            e = int((out.long() - plain.long()).abs().max()) \
+                if out.numel() else 0
+            if e or not np.array_equal(out.cpu().numpy(), want):
+                raise AssertionError(f"K7 {what}: the {name} route disagrees "
+                                     "with its plain version / numpy")
+            err = max(err, e)
+        routes[what] = (f"{route}, Q={keys_np.size}, N={table_np.size} "
+                        f"(the {other} route checked too)")
         return kt, tt, err
 
     table = np.sort((ids >> np.uint64(32)).astype(np.uint32))
     n = table.size
     keys = np.random.default_rng(SEED + 7).integers(0, 2**32, K7_KEYS,
                                                     dtype=np.uint32)
+    cross = rl_kernel.K7_SAMPLE_KEYS
     kt, tt, err = check(keys, table, f"Q={K7_KEYS}, N={n}")
+    for q in (4096, cross, cross + 1):
+        err = max(err, check(keys[:q], table, f"Q={q}")[2])
+    err = max(err, check(keys, table, "table 4 bytes off a 16-byte "
+                                      "boundary", offset=1)[2])
     small = {"N=1": table[:1], "N=7": table[::n // 7][:7],
              "N=7 with duplicates": np.sort(np.repeat(table[:3], 3)[:7])}
     boundary = {}
@@ -1225,24 +1438,35 @@ def k7_phase(dev, ids) -> dict:
         err = max(err, check(bkeys, tbl, f"boundary keys, {what}")[2])
         boundary[what] = int(bkeys.size)
     try:
-        rl_ops.ring_lookup(kt[:4], tt[:0])
+        fn7(kt[:4], tt[:0])
     except LookupError:
         pass
     else:
         raise AssertionError("K7 took an empty table")
     table64 = tt.long() & 0xFFFFFFFF
     keys64 = kt.long() & 0xFFFFFFFF
-    b7, by7 = bound(K7_KEYS * 8 + n * 4,
-                    K7_KEYS * (math.ceil(math.log2(n)) + 1) * 3, FP32_FLOPS)
+
+    b7, by7 = k7_bound(keys, table)
+    kt4, keys4 = kt[:4096], keys64[:4096]
+    b4, by4 = k7_bound(keys[:4096], table)
     row = {"name": "ring_lookup", "route": "cuda",
            "source": "src/repro_torch/csrc/ring_lookup.cu",
            "replaces": "src/repro/kernels/ring_lookup/kernel.py:60",
            "shape": f"Q={K7_KEYS}, N={n} (high words of the 10^6 peer ids)",
+           "kernel_route": rl_kernel.k7_route(K7_KEYS),
+           "crossover_q": cross, "routes_per_case": routes,
            "max_abs_err": err, "tolerance": 0,
-           **in_turns(lambda i: rl_ops.ring_lookup(kt, tt),
+           **in_turns(lambda i: fn7(kt, tt),
                       lambda i: torch.searchsorted(table64, keys64) % n),
            "plain_ms": cuda_ms(lambda i: ring_lookup_ref(kt, tt)),
-           "bound_ms": b7, "bound_by": by7}
+           "bound_ms": b7, "bound_by": by7,
+           "q4096": {"shape": "Q=4096 (the quickstart's step 5)",
+                     "kernel_route": rl_kernel.k7_route(4096),
+                     **in_turns(lambda i: fn7(kt4, tt),
+                                lambda i: torch.searchsorted(table64,
+                                                             keys4) % n),
+                     "plain_ms": cuda_ms(lambda i: ring_lookup_ref(kt4, tt)),
+                     "bound_ms": b4, "bound_by": by4}}
     emit({"phase": "k7", **row,
           "duplicate_words": int(n - np.unique(table).size),
           "boundary_keys": boundary, "empty_table": "LookupError"})
@@ -1259,16 +1483,19 @@ def quickstart_phase(dev) -> int:
     from repro_torch.kernels.ring_lookup.ref import ring_lookup_ref
 
     lines = []
-    rl_ops.ring_lookup.launches = 0
+    fn7 = rl_ops.ring_lookup
+    fn7.launches = fn7.one_level_launches = fn7.sampled_launches = 0
     t0 = time.perf_counter()
     res = quickstart.run(dev, out=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rl_ops.ring_lookup.launches
+    launches = fn7.launches
     plain = ring_lookup_ref(torch.from_numpy(res["keys"].view(np.int32)),
                             torch.from_numpy(res["table"].view(np.int32)))
     idx = res["idx"].cpu()
     emit({"phase": "quickstart", "lines": lines, "k7_launches": launches,
+          "k7_launches_by_route": {"one_level": fn7.one_level_launches,
+                                   "sampled": fn7.sampled_launches},
           "first5": idx[:5].tolist(), "first5_plain": plain[:5].tolist(),
           "wall_s": wall})
     if launches != 1:

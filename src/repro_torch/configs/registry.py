@@ -1,5 +1,5 @@
 """Architecture registry of the port: the configs it can serve (the dense
-and the Mamba-1 SSM families).
+family and the Mamba-1 SSM family).
 
 Each entry provides the FULL config and a ``smoke()`` reduction of the
 same family (small depth/width/vocab) for CPU tests.
@@ -10,7 +10,8 @@ import importlib
 
 from .base import ModelConfig
 
-ARCH_IDS = ["qwen2.5-3b", "falcon-mamba-7b"]
+ARCH_IDS = ["qwen2.5-3b", "internlm2-20b", "nemotron-4-15b", "command-r-35b",
+            "falcon-mamba-7b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -71,13 +71,51 @@
 //   hold duplicates (the count is of strict "less than", so a run of equal
 //   words gives its first index).  The TPU kernel pads keys and table to
 //   its tiles and runs an O(N) compare-and-count per key on the vector
-//   lanes.  Here, as in K1, one thread per key runs a branchless lower
-//   bound over the N words: no padding, any Q and N >= 1, threads past Q
-//   return.  N is a launch argument (the table's length is its shape).
-//   Bound on this card: bytes — keys and output 4 B a key each, the table
-//   4 B a word once; a 10^6-word table (4 MB) stays in L2, so the
-//   log2(N) dependent probes per key are L2 hits, hidden by 2^20 keys in
-//   flight.
+//   lanes.  Bound on this card: bytes -- keys and output 4 B a key each,
+//   the table 4 B a word once.  A 10^6-word table (4 MB) stays in L2, so
+//   what a search pays is its L2 requests: the first design (one thread a
+//   key, a branchless lower bound over all N words) made ~20 dependent
+//   probes a key, the bottom ~10 of them scattered 32-byte sectors for 4
+//   useful bytes each.  The design, as K1's but with the words half as
+//   wide and 128 KB of shared memory, so the sample is eight times as
+//   dense:
+//   * a persistent grid, one block of 1024 threads an SM, walks the keys
+//     grid-stride.  The stride s = 2^shift is the least power of two with
+//     N <= s * kK7Sample (kK7Sample = 2^15 - 1: s = 32 at N = 10^6, 31,250
+//     samples).  A first small kernel lays the samples (entries 0, s, 2s,
+//     ... < N, then 2^32 - 1, which no key is below) out once a call as a
+//     complete binary tree, breadth-first, in a compact scratch (one sector
+//     a sample word), and each block copies it into 128 KB of dynamic
+//     shared memory (the opt-in above 48 KB).  Gathered in every block
+//     instead, at stride s, the fill would cost each block a sector a word;
+//   * each key walks the tree down its 15 levels, a load, a compare and
+//     two selects a level, keeping the samples either side of it; the
+//     path's bits are c, the samples below the key, so the count lies in
+//     [(c - 1) s + 1, min(c s, N)] (0 when c = 0), a segment of < s words,
+//     at N = 10^6 inside one aligned 128-byte line.  The breadth-first
+//     layout keeps a level's nodes contiguous: a sorted array's lower
+//     bound, at power-of-two strides, puts all of a level's probes of a
+//     warp in one bank (1.9x slower at Q 2^20 on an H100, PERF.md);
+//   * the key's place between samples c - 1 and c, both in shared memory,
+//     interpolates where the count falls in the segment, and the thread
+//     reads the aligned window of kK7Window words (one 32-byte sector,
+//     two 16-byte loads where the table is 16-byte aligned, plain loads
+//     where not) holding that guess and counts the words below the key in
+//     registers.  When the window holds the answer (neither wholly above
+//     nor wholly below the key) that is the count: one L2 request a key.
+//     Otherwise the aligned window next to it on the side the first rules
+//     out, and where that misses too, the branchless lower bound over the
+//     rest of that side.  Interpolation buys speed only: any sorted table
+//     gives the same answer;
+//   * at small Q the fill costs more than it saves (each block reads the
+//     whole sample for a few keys), so the wrapper
+//     (kernels/ring_lookup/kernel.py::k7_route) calls ring_lookup_launch,
+//     the first design, one thread a key and one lower bound over the N
+//     words, up to K7_SAMPLE_KEYS keys, and ring_lookup_sampled_launch
+//     above; the two routes tie at 65,536 keys on an H100
+//     (chip_kernel_steps.py, phase k7).
+//   N is a launch argument (the table's length is its shape); any Q and
+//   1 <= N < 2^31.
 
 #include <algorithm>
 #include <cstdint>
@@ -92,6 +130,12 @@ constexpr int kK1Threads = 1024;
 constexpr int kK1BlocksPerSM = 1;
 constexpr int kWindow = 8;   // K2's first read: slots a 32-byte sector holds
 constexpr int64_t kK2WarpKeys = 4096;   // K2 takes a warp a key up to here
+constexpr int kK7Levels = 15;           // K7's sample tree: 15 levels,
+constexpr int kK7Sample = 32767;        // (1 << kK7Levels) - 1 nodes, 128 KB
+constexpr int kK7Threads = 1024;
+constexpr int kK7Window = 8;            // K7's first read: a 32-byte sector
+static_assert(kK7Sample == (1 << kK7Levels) - 1, "a complete tree");
+static_assert((kK7Sample + 1) % (4 * kK7Threads) == 0, "whole uint4 copies");
 
 __device__ __forceinline__ uint64_t id64(uint32_t hi, uint32_t lo) {
   return (static_cast<uint64_t>(hi) << 32) | lo;
@@ -165,6 +209,141 @@ __global__ void ring_lookup32_kernel(const uint32_t* __restrict__ keys,
   const uint32_t key = keys[i];
   const int32_t count = count_below(n, [&](int32_t j) { return table[j] < key; });
   out[i] = count == n ? 0 : count;
+}
+
+// K7's sample tree, breadth-first (node k's children are 2k and 2k + 1):
+// node k at depth d holds the sample of in-order rank r, entry r s of the
+// table, or 2^32 - 1 (never below a key) past the m samples; word 0 is a pad
+__device__ __forceinline__ uint32_t tree_node(const uint32_t* __restrict__ table,
+                                              int32_t k, int32_t m, int shift) {
+  if (k == 0) return 0xFFFFFFFFu;
+  const int d = 31 - __clz(k);
+  const int32_t r = ((((k - (1 << d)) << 1) + 1) << (kK7Levels - 1 - d)) - 1;
+  return r < m ? table[static_cast<int64_t>(r) << shift] : 0xFFFFFFFFu;
+}
+
+__global__ void ring_lookup32_tree_kernel(const uint32_t* __restrict__ table,
+                                          uint32_t* __restrict__ tree, int32_t m,
+                                          int shift) {
+  const int32_t k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k <= kK7Sample) tree[k] = tree_node(table, k, m, shift);
+}
+
+// The words of the aligned window [w0, w0 + kK7Window) below the key, of
+// the wn = min(kK7Window, N - w0) it holds.  kVec: the table is 16-byte
+// aligned, so a full window is kK7Window / 4 uint4 loads.
+template <bool kVec>
+__device__ __forceinline__ int32_t window_below(const uint32_t* __restrict__ table,
+                                                int32_t wn, uint32_t key, int32_t w0) {
+  uint32_t w[kK7Window];
+  if (kVec && wn == kK7Window) {
+#pragma unroll
+    for (int v = 0; v < kK7Window / 4; ++v) {
+      const uint4 x = reinterpret_cast<const uint4*>(table + w0)[v];
+      w[4 * v] = x.x, w[4 * v + 1] = x.y, w[4 * v + 2] = x.z, w[4 * v + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kK7Window; ++j) w[j] = j < wn ? table[w0 + j] : 0xFFFFFFFFu;
+  }
+  int32_t in = 0;
+#pragma unroll
+  for (int j = 0; j < kK7Window; ++j) in += j < wn && w[j] < key;
+  return in;
+}
+
+// The count of table words below the key, known to lie in [lo + 1, hi]:
+// table[lo] = a < key <= b (b = table[hi] when hi < N, else 2^32 - 1).
+template <bool kVec>
+__device__ __forceinline__ int32_t segment_count(const uint32_t* __restrict__ table,
+                                                 int32_t n, uint32_t key,
+                                                 int32_t lo, int32_t hi,
+                                                 uint32_t a, uint32_t b) {
+  const auto below = [&](int32_t j) { return table[j] < key; };
+  const float frac = __fdividef(static_cast<float>(key - a),
+                                static_cast<float>(b - a) + 1.0f);
+  const int32_t guess = min(lo + static_cast<int32_t>(frac * static_cast<float>(hi - lo)),
+                            hi - 1);
+  int32_t w0 = guess & ~(kK7Window - 1);         // <= guess < hi <= N
+  int32_t wn = min(kK7Window, n - w0);           // words the window holds
+  int32_t in = window_below<kVec>(table, wn, key, w0);
+  if (in == 0 && w0 > lo + 1) {        // the window starts at or past the key:
+    w0 -= kK7Window;                   // the aligned window before it (>= 0:
+    wn = kK7Window;                    // w0 > lo + 1 >= 1, a multiple)
+    in = window_below<kVec>(table, wn, key, w0);
+    if (in == 0 && w0 > lo + 1)
+      return lo + 1 + count_below(w0 - lo - 1, [&](int32_t j) { return below(lo + 1 + j); });
+  } else if (in == wn && w0 + wn < hi) {   // it ends below the key:
+    w0 += kK7Window;                   // the aligned window after it (wn was
+    wn = min(kK7Window, n - w0);       // kK7Window, so w0 + wn < hi <= N)
+    in = window_below<kVec>(table, wn, key, w0);
+    const int32_t past = w0 + wn;
+    if (in == wn && past < hi)
+      return past + count_below(hi - past, [&](int32_t j) { return below(past + j); });
+  }
+  return w0 + in;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kK7Threads, 1)
+ring_lookup32_sampled_kernel(const uint32_t* __restrict__ keys,
+                             const uint32_t* __restrict__ table,
+                             const uint32_t* __restrict__ compact,
+                             int32_t* __restrict__ out, int64_t q, int32_t n,
+                             int shift) {
+  // the sample tree in shared memory, a copy of the compact one (the
+  // scratch is 16-byte aligned; all loads issued before the stores)
+  extern __shared__ uint4 tree4[];
+  const uint32_t* tree = reinterpret_cast<const uint32_t*>(tree4);
+  {
+    constexpr int kCopies = (kK7Sample + 1) / 4 / kK7Threads;
+    const uint4* src = reinterpret_cast<const uint4*>(compact);
+    uint4 v[kCopies];
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) v[j] = src[threadIdx.x + j * kK7Threads];
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) tree4[threadIdx.x + j * kK7Threads] = v[j];
+  }
+  __syncthreads();
+  const auto lookup = [&](uint32_t key) {
+    // down the tree: each level a load, a compare, and the samples on
+    // either side of the key kept; the path's bits are c, the samples
+    // below the key.  A level's nodes are contiguous, so the top levels'
+    // loads of a warp fall in distinct banks or on one word
+    int32_t k = 1;
+    uint32_t a = 0, b = 0xFFFFFFFFu;
+#pragma unroll
+    for (int d = 0; d < kK7Levels; ++d) {
+      const uint32_t v = tree[k];
+      const bool lt = v < key;
+      a = lt ? v : a;
+      b = lt ? b : v;
+      k = 2 * k + lt;
+    }
+    const int32_t c = k - (1 << kK7Levels);
+    if (c == 0) return 0;              // sample c - 1 = a < key <= b = sample c
+    const int32_t lo = (c - 1) << shift;
+    const int64_t end = static_cast<int64_t>(c) << shift;
+    const int32_t hi = static_cast<int32_t>(end < n ? end : n);
+    const int32_t count = hi - lo > 1 ? segment_count<kVec>(table, n, key, lo, hi, a, b) : hi;
+    return count == n ? 0 : count;
+  };
+  const int64_t first = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = first; i < q; i += step) out[i] = lookup(keys[i]);
+}
+
+// opt in to K7's dynamic shared memory (above 48 KB) once per variant and
+// device: the attribute applies to the current device only
+template <bool kVec>
+cudaError_t k7_prepare(int device) {
+  static uint64_t granted = 0;
+  if (device < 64 && granted >> device & 1u) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(ring_lookup32_sampled_kernel<kVec>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (kK7Sample + 1) * static_cast<int>(sizeof(uint32_t)));
+  if (e == cudaSuccess && device < 64) granted |= uint64_t{1} << device;
+  return e;
 }
 
 // K2 for a few keys: one warp a key reads the whole row pair at once, each
@@ -279,6 +458,7 @@ extern "C" int ring_lookup64_launch(const void* keys_hi, const void* keys_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7's first design, the route for small Q: a thread a key
 extern "C" int ring_lookup_launch(const void* keys, const void* table, void* out,
                                   int64_t q, int n, void* stream) {
   const int64_t blocks = (q + kThreads - 1) / kThreads;
@@ -286,6 +466,38 @@ extern "C" int ring_lookup_launch(const void* keys, const void* table, void* out
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(table),
       static_cast<int32_t*>(out), q, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's sampled route: the tree into the (kK7Sample + 1)-word scratch
+// `sample`, then the persistent grid
+extern "C" int ring_lookup_sampled_launch(const void* keys, const void* table,
+                                          void* sample, void* out, int64_t q, int n,
+                                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* k = static_cast<const uint32_t*>(keys);
+  const auto* t = static_cast<const uint32_t*>(table);
+  auto* o = static_cast<int32_t*>(out);
+  int shift = 0;           // s = 2^shift: the least power of two, n <= s * kK7Sample
+  while ((static_cast<int64_t>(kK7Sample) << shift) < n) ++shift;
+  const int32_t m = ((n - 1) >> shift) + 1;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const bool vec = reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  if (err == cudaSuccess) err = vec ? k7_prepare<true>(device) : k7_prepare<false>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* samp = static_cast<uint32_t*>(sample);
+  ring_lookup32_tree_kernel<<<(kK7Sample + 256) / 256, 256, 0, st>>>(t, samp, m, shift);
+  const int64_t blocks = std::min<int64_t>((q + kK7Threads - 1) / kK7Threads, sms);
+  const size_t smem = (kK7Sample + 1) * sizeof(uint32_t);
+  if (vec)
+    ring_lookup32_sampled_kernel<true><<<static_cast<unsigned>(blocks), kK7Threads, smem, st>>>(
+        k, t, samp, o, q, n, shift);
+  else
+    ring_lookup32_sampled_kernel<false><<<static_cast<unsigned>(blocks), kK7Threads, smem, st>>>(
+        k, t, samp, o, q, n, shift);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,8 @@ SIGNATURES = {
     "ring_lookup64_launch": [_P] * 6 + [_L, _P],
     # keys, table, out, q, n, stream
     "ring_lookup_launch": [_P] * 3 + [_L, _I, _P],
+    # keys, table, sample scratch, out, q, n, stream
+    "ring_lookup_sampled_launch": [_P] * 4 + [_L, _I, _P],
     # keys_hi, keys_lo, bkt_hi, bkt_lo, occ, out_hi, out_lo, q, bits, stream
     "ring_lookup_bucketed_launch": [_P] * 7 + [_L, _I, _P],
     # q, k, v, length, out, m_part, l_part, acc_part,

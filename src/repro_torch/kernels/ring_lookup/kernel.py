@@ -26,20 +26,50 @@ def _check(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def ring_lookup_cuda(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+# K7's sample tree scratch: kK7Sample + 1 words of csrc/ring_lookup.cu, one
+# buffer per (device, stream), which each call overwrites before it reads it
+K7_TREE_WORDS = 32768
+K7_SAMPLE_KEYS = 65536   # K7 takes one level up to this Q (measured on H100)
+K7_ROUTES = ("one_level", "sampled")
+_k7_scratch: dict = {}
+
+
+def k7_route(q: int) -> str:
+    """The route K7 takes for ``q`` keys: ``"one_level"`` (a thread a key,
+    one lower bound over the table) up to K7_SAMPLE_KEYS, else
+    ``"sampled"`` (the shared-memory sample tree and the window)."""
+    return "one_level" if q <= K7_SAMPLE_KEYS else "sampled"
+
+
+def ring_lookup_cuda(keys: torch.Tensor, table: torch.Tensor,
+                     route: str | None = None) -> torch.Tensor:
     """(Q,) key words, (N,) sorted table words (uint32 bit patterns in
-    int32, 1 <= N < 2^31) -> (Q,) int32 ``bisect_left % N``."""
+    int32, 1 <= N < 2^31) -> (Q,) int32 ``bisect_left % N``, on ``route``
+    (default ``k7_route(Q)``): the one launcher of that route is called."""
     dev = _check("ring_lookup", keys, table)
     q, n = keys.numel(), table.numel()
     if keys.dim() != 1 or table.dim() != 1 or not 0 < n < 2**31:
         raise ValueError(f"ring_lookup: expects (Q,) keys and an (N,) table "
                          f"with 1 <= N < 2^31, got {tuple(keys.shape)}, "
                          f"{tuple(table.shape)}")
+    route = k7_route(q) if route is None else route
+    if route not in K7_ROUTES:
+        raise ValueError(f"ring_lookup: route {route!r} not in {K7_ROUTES}")
     out = torch.empty(q, dtype=torch.int32, device=dev)
-    if q:
+    if not q:
+        return out
+    stream = raw_stream(dev)
+    if route == "one_level":
         build.launch("ring_lookup_launch", keys.data_ptr(), table.data_ptr(),
-                     out.data_ptr(), q, n,
-                     raw_stream(dev))
+                     out.data_ptr(), q, n, stream)
+        return out
+    sample = _k7_scratch.get((dev, stream))
+    if sample is None:
+        sample = _k7_scratch[(dev, stream)] = torch.empty(
+            K7_TREE_WORDS, dtype=torch.int32, device=dev)
+    build.launch("ring_lookup_sampled_launch", keys.data_ptr(),
+                 table.data_ptr(), sample.data_ptr(), out.data_ptr(), q, n,
+                 stream)
     return out
 
 

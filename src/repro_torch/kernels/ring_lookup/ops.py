@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import (ring_lookup64_cuda, ring_lookup_bucketed_cuda,
+from .kernel import (k7_route, ring_lookup64_cuda, ring_lookup_bucketed_cuda,
                      ring_lookup_cuda)
 from .ref import ring_lookup64_ref, ring_lookup_bucketed_ref, ring_lookup_ref
 
@@ -16,14 +16,22 @@ def ring_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     table, uint32 bit patterns in int32 tensors, -> (Q,) int32
     ``bisect_left(table, key) % N``.  Raises ``LookupError`` on an empty
     table before any device work.  A signed int32 table is not a
-    supported input: the words are compared as uint32."""
+    supported input: the words are compared as uint32.
+    ``ring_lookup.one_level_launches`` / ``.sampled_launches`` count the
+    launches of each route: ``kernel.k7_route`` picks it here, and the
+    launcher is handed it."""
     if table.numel() == 0:
         raise LookupError("empty routing table")
     if keys.device.type == "cpu":
         return ring_lookup_ref(keys, table)
-    out = ring_lookup_cuda(keys, table)
+    route = k7_route(keys.numel())
+    out = ring_lookup_cuda(keys, table, route)
     if out.numel():
         ring_lookup.launches += 1
+        if route == "sampled":
+            ring_lookup.sampled_launches += 1
+        else:
+            ring_lookup.one_level_launches += 1
     return out
 
 
@@ -54,5 +62,7 @@ def ring_lookup_bucketed(keys_hi: torch.Tensor, keys_lo: torch.Tensor,
 
 
 ring_lookup.launches = 0
+ring_lookup.one_level_launches = 0
+ring_lookup.sampled_launches = 0
 ring_lookup64.launches = 0
 ring_lookup_bucketed.launches = 0

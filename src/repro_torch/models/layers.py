@@ -165,10 +165,23 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # MLP, embedding, head
 # ---------------------------------------------------------------------------
 
+_ACTS = {
+    "silu": F.silu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.act != "silu":
+    """``act(x @ w1) @ w2``, gated by ``x @ w3`` where the tree has it (the
+    silu MLPs: ``transformer.param_shapes`` gives ``w3`` only there)."""
+    if cfg.act not in _ACTS:
         raise NotImplementedError(f"activation {cfg.act}")
-    return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
+    h = _ACTS[cfg.act](x @ params["w1"])
+    if "w3" in params:
+        h = h * (x @ params["w3"])
+    return h @ params["w2"]
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

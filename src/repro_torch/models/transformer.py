@@ -30,7 +30,9 @@ def param_shapes(cfg: ModelConfig) -> Params:
             "wo": (h * hd, d)}
     if cfg.qkv_bias:
         attn.update({"bq": (h * hd,), "bk": (hkv * hd,), "bv": (hkv * hd,)})
-    mlp = {"w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d), "w3": (d, cfg.d_ff)}
+    mlp = {"w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d)}
+    if cfg.act == "silu":                   # gated: repro's mlp_params
+        mlp["w3"] = (d, cfg.d_ff)
     emb = {"embedding": (cfg.vocab, d)}
     if not cfg.tie_embeddings:
         emb["lm_head"] = (d, cfg.vocab)

@@ -218,12 +218,75 @@ def test_ring_lookup_kernel_equals_plain(cuda, n, dups):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("side", ["one_level", "sampled"])
+@pytest.mark.parametrize("n", [1, 7, 32767, 32769, 1_000_000,
+                               32 * 32768 + 1])
+def test_ring_lookup_kernel_on_both_routes(cuda, n, side):
+    """Q at the crossover (one level) and one past it (the shared-memory
+    sample and window), on tables either side of the stride steps: the
+    wrapper's route counter moves by one."""
+    table, keys = _k7_case(n, dups=n > 7, seed=n)
+    q = rl_kernel.K7_SAMPLE_KEYS + (side == "sampled")
+    keys = np.random.default_rng(n).choice(keys, q)   # words, neighbours
+    keys[-2:] = [0, 2**32 - 1]
+    kt = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    tt = torch.from_numpy(table.view(np.int32)).to(cuda)
+    fn = rl_ops.ring_lookup
+    before = fn.one_level_launches, fn.sampled_launches
+    got = fn(kt, tt)
+    torch.cuda.synchronize()
+    assert (fn.one_level_launches - before[0], fn.sampled_launches
+            - before[1]) == ((1, 0) if side == "one_level" else (0, 1))
+    assert torch.equal(got, rl_ref.ring_lookup_ref(kt, tt))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), np.searchsorted(table, keys, side="left") % n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [1_000_003, 4099])
+def test_ring_lookup_kernel_on_a_misaligned_table(cuda, offset, n):
+    """A table view 4, 8 or 12 bytes past a 16-byte boundary takes plain
+    loads into the same window (16-byte loads where aligned), and the
+    last window is cut by N."""
+    table, keys = _k7_case(n, dups=True, seed=offset)
+    buf = torch.zeros(n + offset, dtype=torch.int32, device=cuda)
+    buf[offset:] = torch.from_numpy(table.view(np.int32)).to(cuda)
+    tt = buf[offset:]
+    assert tt.data_ptr() % 16 == 4 * offset
+    kt = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    got = rl_ops.ring_lookup(kt, tt)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), np.searchsorted(table, keys, side="left") % n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["one_level", "sampled"])
+@pytest.mark.parametrize("q", [1, 4096, 1 << 20])
+def test_ring_lookup_kernel_pinned_to_a_route(cuda, q, route):
+    """Either route at any Q when the launcher is handed it: the sampled
+    route at Q 1 and 4096, one level at 2^20."""
+    table, keys = _k7_case(1_000_000, dups=True, seed=q)
+    keys = np.random.default_rng(q).choice(keys, q)
+    kt = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    tt = torch.from_numpy(table.view(np.int32)).to(cuda)
+    got = rl_kernel.ring_lookup_cuda(kt, tt, route)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), np.searchsorted(table, keys, side="left")
+        % table.size)
+
+
+@pytest.mark.cuda
 def test_ring_lookup_kernel_refuses_what_it_does_not_take(cuda):
     words = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         rl_kernel.ring_lookup_cuda(words, words.long())
     with pytest.raises(ValueError):
         rl_kernel.ring_lookup_cuda(words, words.view(2, 4))
+    with pytest.raises(ValueError, match="route"):
+        rl_kernel.ring_lookup_cuda(words, words, "bisect")
     with pytest.raises(LookupError, match="empty routing table"):
         rl_ops.ring_lookup(words, words[:0])
     assert rl_ops.ring_lookup(words[:0], words).shape == (0,)
@@ -282,6 +345,30 @@ def test_decode_attention_full_house_on_the_tensor_cores(cuda, dtype, s):
     torch.cuda.synchronize()
     assert (fn.launches, fn.tc_launches, fn.simt_launches) == (
         before[0] + 1, before[1] + 1, before[2])
+    want = da_ref.decode_attention_ref(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_attention_at_six_query_heads_a_kv_head(cuda, dtype):
+    """internlm2-20b's heads (48 over 8 kv heads, g = 6, hd 128) at a
+    decode bucket of 16, S 2048: one launch, on the tensor cores."""
+    b, h, hkv, hd, s = 16, 48, 8, 128, 2048
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    length = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    length[:3] = torch.tensor([1, s, 129], dtype=torch.int32)
+    assert da_kernel.route(dtype, hd, h // hkv) == "tc"
+    fn = da_ops.decode_attention
+    before = fn.launches, fn.tc_launches
+    got = fn(q, k, v, length)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (before[0] + 1, before[1] + 1)
     want = da_ref.decode_attention_ref(q, k, v, length)
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
                                rtol=0)
@@ -455,6 +542,27 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
         before[0] + 1, before[1] + tc, before[2] + (not tc))
     want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=K5_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [1024, 1000])
+def test_flash_attention_at_six_query_heads_a_kv_head(cuda, dtype, s):
+    """An internlm2-20b whole-prompt admit's attention (48 heads over 8
+    kv heads, g = 6, hd 128, causal): on the tensor cores."""
+    b, h, hkv, hd = 1, 48, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((b, s, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    fn = fa_ops.flash_attention
+    before = fn.tc_launches
+    got = fn(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fn.tc_launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), atol=K5_TOL[dtype],
                                rtol=0)
 

@@ -1,5 +1,7 @@
-"""The port's dense transformer against repro's on qwen2.5-3b smoke() in
-float32, with weights converted from repro's ``Model(cfg).init``:
+"""The port's dense transformer against repro's on the smoke() config of
+each dense architecture (qwen2.5-3b with QKV bias; internlm2-20b and
+command-r-35b without; nemotron-4-15b with the two-matrix squared-ReLU
+MLP) in float32, with weights converted from repro's ``Model(cfg).init``:
 prefill logits within 1e-4, 16 greedy decode steps token-identical,
 chunked prefill equal to a whole one, and per-slot decode at mixed
 lengths equal to repro's.  Decode attention runs K3's plain version."""
@@ -24,10 +26,13 @@ ATOL = 1e-4
 MAX_LEN = 48
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = j_smoke("qwen2.5-3b").with_overrides(dtype="float32")
-    cfg = get_smoke_config("qwen2.5-3b").with_overrides(dtype="float32")
+DENSE = ["qwen2.5-3b", "internlm2-20b", "nemotron-4-15b", "command-r-35b"]
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def pair(request):
+    jcfg = j_smoke(request.param).with_overrides(dtype="float32")
+    cfg = get_smoke_config(request.param).with_overrides(dtype="float32")
     jm = JModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     m = Model(cfg)
@@ -150,7 +155,8 @@ def test_init_draws_repro_distributions_on_the_device():
 def test_load_rejects_a_foreign_tree(pair):
     jm, jp, m, _, _ = pair
     tree = jax.device_get(jp)
-    tree["layers"]["attn"].pop("bq")
+    attn = tree["layers"]["attn"]
+    attn.pop("bq" if "bq" in attn else "wq")
     with pytest.raises(ValueError, match="attn"):
         m.load(tree, device="cpu")
     with pytest.raises(ValueError, match="shape"):
@@ -163,3 +169,85 @@ def test_other_families_are_not_ported():
                                                         moe_experts=4)
     with pytest.raises(NotImplementedError):
         Model(cfg)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_shapes_are_repros_at_full_size(arch):
+    """The full configs' trees, shape for shape, against repro's abstract
+    parameters (no weights are drawn): w3 only where the MLP is
+    silu-gated, and the MLP's weights the count ``configs.base`` gives."""
+    from repro.configs import get_config as j_config
+    from repro_torch.configs import get_config
+    jcfg_shapes = JModel(j_config(arch)).abstract_params()
+    cfg = get_config(arch)
+    shapes = param_shapes(cfg)
+
+    def walk(j, t, path):
+        if isinstance(t, dict):
+            assert set(j) == set(t), path
+            return sum(walk(j[k], t[k], f"{path}/{k}") for k in t)
+        assert tuple(j.shape) == tuple(t), path
+        return int(np.prod(t))
+    walk(jcfg_shapes, shapes, "")
+    mlp = shapes["layers"]["mlp"]
+    assert ("w3" in mlp) == (cfg.act == "silu")
+    assert sum(int(np.prod(t)) for t in mlp.values()) == cfg.num_layers \
+        * (3 if cfg.act == "silu" else 2) * cfg.d_model * cfg.d_ff
+
+
+def test_gelu_mlp_matches_repro():
+    """repro's third activation, jax.nn.gelu (its tanh approximation by
+    default), on internlm2-20b smoke(): prefill logits and three decode
+    steps within 1e-4, two-matrix MLP."""
+    over = dict(dtype="float32", act="gelu")
+    jm = JModel(j_smoke("internlm2-20b").with_overrides(**over))
+    jp = jm.init(jax.random.PRNGKey(1))
+    m = Model(get_smoke_config("internlm2-20b").with_overrides(**over))
+    p = m.load(jax.device_get(jp), device="cpu")
+    assert set(p["layers"]["mlp"]) == {"w1", "w2"}
+    prompt = _prompt(m.cfg, 11, 5)[None]
+    jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(prompt)},
+                                 jm.init_cache(1, MAX_LEN))
+    tl, tc = m.prefill(p, {"tokens": torch.from_numpy(prompt)},
+                       m.init_cache(1, MAX_LEN, device="cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    tok = int(jnp.argmax(jl[0]))
+    for step in range(3):
+        idx = np.asarray([11 + step], np.int32)
+        jl, jc = jax.jit(jm.decode_step)(jp, jc, jnp.asarray([[tok]]),
+                                         jnp.asarray(idx))
+        tl, tc = m.decode_step(p, tc, torch.tensor([[tok]]),
+                               torch.from_numpy(idx))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   rtol=0)
+        tok = int(jnp.argmax(jl[0]))
+        assert tok == int(torch.argmax(tl[0]))
+
+
+def test_relu2_tree_has_two_matrices():
+    """nemotron-4-15b smoke(): repro's tree has no w3, ``params_from_jax``
+    takes it as it is, and refuses the same tree with a w3 added."""
+    cfg = get_smoke_config("nemotron-4-15b").with_overrides(dtype="float32")
+    jm = JModel(j_smoke("nemotron-4-15b").with_overrides(dtype="float32"))
+    tree = jax.device_get(jm.init(jax.random.PRNGKey(2)))
+    assert set(tree["layers"]["mlp"]) == {"w1", "w2"}
+    p = params_from_jax(tree, cfg, "cpu")
+    assert p["layers"]["mlp"]["w1"].shape == (cfg.num_layers, cfg.d_model,
+                                              cfg.d_ff)
+    assert p["layers"]["mlp"]["w2"].shape == (cfg.num_layers, cfg.d_ff,
+                                              cfg.d_model)
+    tree["layers"]["mlp"]["w3"] = tree["layers"]["mlp"]["w1"]
+    with pytest.raises(ValueError, match="mlp"):
+        params_from_jax(tree, cfg, "cpu")
+    drawn = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    assert set(drawn["layers"]["mlp"]) == {"w1", "w2"}
+
+
+def test_mlp_refuses_an_activation_repro_does_not_know():
+    from repro_torch.models import layers
+    cfg = get_smoke_config("internlm2-20b").with_overrides(act="swish")
+    x = torch.zeros(1, 2, cfg.d_model)
+    w = {"w1": torch.zeros(cfg.d_model, cfg.d_ff),
+         "w2": torch.zeros(cfg.d_ff, cfg.d_model)}
+    with pytest.raises(NotImplementedError, match="swish"):
+        layers.mlp(w, x, cfg)
