@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """What holds K3 (decode attention), K2 (bucketed ring lookup), K6
 (selective scan), K4 (EDRA tree) and K7 (single-word ring lookup) back,
-and what each step of their redesign buys, on one card.
+and what each step of their redesign buys, on one card; and K5's (flash
+attention) device time at the serve paths' heads.
 
     python3 chip_kernel_steps.py [phase ...]     # all phases by default
 
@@ -69,7 +70,15 @@ layer's cache is cold:
             its design (``K7_STEPS``; the first design's search cut 10 levels
             early); then Q 256 to 2^20 on each route the launcher has,
             which places its crossover; each case against numpy's bisect
-            (only the kernel is gated); first the launch shape.
+            (only the kernel is gated); first the launch shape;
+  k5        K5 (``ops.flash_attention``) on a 1024-token causal
+            whole-prompt admit in bf16 at the heads of qwen2.5-3b (16 / 2,
+            hd 128), qwen3-moe-235b-a22b (64 / 4, hd 128) and zamba2-7b's
+            shared block (32 / 32, hd 112), by device time (torch.profiler)
+            and by the CUDA-event time of back-to-back calls, beside SDPA's
+            device time (its default backend) on the same inputs; a shape
+            the tree's tensor-core route does not take is reported as
+            skipped.
 
 The phases read which design the checkout holds from its sources, so the
 script also measures a parent's kernels when copied into its tree.
@@ -963,7 +972,50 @@ def k7(dev):
         emit({"phase": "k7_sweep", "design": which, **row})
 
 
-PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4", "k7")
+K5_HEADS = {"qwen2.5-3b": (16, 2, 128), "qwen3-moe": (64, 4, 128),
+            "zamba2-7b": (32, 32, 112)}
+K5_TOL = 2e-2                     # repro's bf16 tolerance (test_kernels.py)
+
+
+def k5(dev, gen):
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    s = 1024
+    for model, (h, hkv, hd) in K5_HEADS.items():
+        row = {"model": model, "B": 1, "S": s, "H": h, "Hkv": hkv, "hd": hd,
+               "dtype": "bfloat16", "causal": True}
+        if fk.route(torch.bfloat16, hd) != "tc":
+            emit({"phase": "k5", **row, "skipped": "not on this tree's "
+                  "tensor-core route"})
+            continue
+        q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for n in (h, hkv, hkv))
+        fn = fa_ops.flash_attention
+        before = fn.tc_launches
+        got = fn(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if fn.tc_launches != before + 1:
+            raise AssertionError(f"K5 at {model}'s heads left the tensor cores")
+        err = float((got.float() - flash_attention_ref(
+            q, k, v, causal=True).float()).abs().max())
+        if not err <= K5_TOL:
+            raise AssertionError(f"K5 at {model}'s heads: err {err}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa(i):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        kernel = lambda i: fn(q, k, v, causal=True)  # noqa: E731
+        row.update(err=err, device_ms=device_ms(kernel),
+                   ms=smoke.cuda_ms(kernel), sdpa_device_ms=device_ms(sdpa))
+        emit({"phase": "k5", **row})
+        del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+
+
+PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4", "k7", "k5")
 
 
 def main(argv=None) -> int:
@@ -990,7 +1042,7 @@ def main(argv=None) -> int:
             continue
         if phase in ("k3_tc", "k2_alternatives") and not redesigned:
             continue
-        if phase in ("k3_simt", "k3_tc", "k6"):
+        if phase in ("k3_simt", "k3_tc", "k6", "k5"):
             globals()[phase](dev, gen)
         else:
             globals()[phase](dev)

@@ -19,7 +19,19 @@ at full width (random weights from a seed), one Replica (16 slots)
 holding 8 sessions of 128-1024 prompt tokens: one whole-prompt admit of
 1024 tokens (its scans in K6; the window reports K6's share of the
 device time), after a warm-up admit, then 3 fused lockstep decode
-rounds.  Then one D1HT ``simulate_churn`` of the §VII churn cell
+rounds.  Then zamba2-7b at full size (81 Mamba-2 layers, 14 shared-block
+sites), one Replica (16 slots, 2048 positions): a whole-prompt admit of
+1024 tokens after 14 sessions of 128-1024 tokens and a warm-up admit
+(the shares of K5, at hd 112, and of the SSD), then 5 fused lockstep
+rounds of the full house of 16 (the shares of K3 and the SSD).  Then
+qwen3-moe-235b-a22b at full width and 8 layers, one Replica (16 slots,
+256-token prefill chunks) holding 16 sessions: 5 fused rounds of 16 (the
+shares of K3 and of the expert products).  The SSD (``ssm._ssd_chunks``,
+``ssm._ssd_step``) and the expert products (``layers._expert_ffn``) are
+wrapped in ``torch.profiler.record_function`` labels for those two
+models' windows only (the originals are restored after them), and their
+shares are the device time of the kernels launched inside those labels;
+a label with no device time fails the run.  Then one D1HT ``simulate_churn`` of the §VII churn cell
 (n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
 one warm-up run: its host-side event stream (also timed alone) and
 draws, K4 (the window reports its share) and the device metering.  Prints
@@ -29,6 +41,7 @@ device time.  Needs a CUDA card; imports no jax.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -40,9 +53,12 @@ ROOT = Path(__file__).resolve().parent
 TOP = 12
 
 
-def _busy_ms(events) -> float:
+def _busy_ms(events, labels=()) -> float:
+    """The union of the device events' intervals; the device-side spans of
+    the ``record_function`` labels (first to last kernel inside one, gaps
+    included) are left out."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type.name == "CUDA")
+                   if e.device_type.name == "CUDA" and e.name not in labels)
     busy, end = 0.0, -1.0
     for a, b in spans:
         if b <= end:
@@ -52,7 +68,32 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _window(label: str, fn, steps: int, share_of: str = "", **extra) -> None:
+@contextlib.contextmanager
+def _labelled(module, label: str, *names: str):
+    """Wrap ``module.<name>`` for each name in a ``record_function`` label
+    while the block runs, and restore the originals after it.  Callers look
+    the functions up in the module's globals, so they take the wrappers;
+    ``_window`` fails when no kernel ran inside a label, so a caller that
+    bound a function early cannot read as a share of 0."""
+    import torch
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, wrap(fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _window(label: str, fn, steps: int, share_of: str = "",
+            labels=(), **extra) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -62,8 +103,9 @@ def _window(label: str, fn, steps: int, share_of: str = "", **extra) -> None:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = _busy_ms(prof.events())
-    rows = sorted(prof.key_averages(), key=lambda r: -r.self_device_time_total)
+    busy = _busy_ms(prof.events(), labels)
+    rows = sorted((r for r in prof.key_averages() if r.key not in labels),
+                  key=lambda r: -r.self_device_time_total)
     top = [{"op": r.key, "calls": r.count,
             "device_ms": r.self_device_time_total / 1e3 / steps}
            for r in rows[:TOP] if r.self_device_time_total > 0]
@@ -72,6 +114,15 @@ def _window(label: str, fn, steps: int, share_of: str = "", **extra) -> None:
                  if share_of in r.key) / 1e3 / steps
         extra["share"] = {"ops_matching": share_of, "device_ms": ms,
                           "of_busy": ms * steps / busy if busy else None}
+    for name in labels:     # the kernels launched inside these labels
+        ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == name and e.device_type.name == "CPU") \
+            / 1e3 / steps
+        if not ms > 0:
+            raise AssertionError(f"{label}: no device time inside the "
+                                 f"{name!r} label")
+        extra.setdefault("label_shares", {})[name] = {
+            "device_ms": ms, "of_busy": ms * steps / busy if busy else None}
     print(json.dumps({"window": label, "steps": steps,
                       "wall_ms_per_step": wall / steps,
                       "device_busy_ms_per_step": busy / steps,
@@ -90,6 +141,7 @@ def main() -> int:
     from repro_torch.core.sim import _churn_event_stream, simulate_churn
     from repro_torch.kernels.backend import nvidia_smi_line
     from repro_torch.models import Model
+    from repro_torch.models import layers, ssm
     from repro_torch.runtime import Membership
     from repro_torch.serve import Replica, Request
 
@@ -172,6 +224,47 @@ def main() -> int:
         rep.decode_round(route=route)
     _window("ssm_fused_decode_round_b16", lambda: rep.decode_round(route=route),
             3)
+    del rep, params, model
+    torch.cuda.empty_cache()
+
+    with _labelled(ssm, "ssd", "_ssd_chunks", "_ssd_step"):
+        cfg = get_config("zamba2-7b")
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        rep = Replica(model, slots=16, max_len=2048, device=dev)
+        rep.attach_params(params)
+        for i, n in enumerate(rng.integers(128, 1025, size=14)):
+            rep.admit(Request(f"hybrid-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                          dtype=np.int32)))
+        late = iter(Request(f"late-{i}", rng.integers(0, cfg.vocab, 1024,
+                                                      dtype=np.int32))
+                    for i in range(2))
+        rep.admit(next(late))                # warm-up: a whole 1024-token admit
+        _window("zamba2_admit_1024", lambda: rep.admit(next(late)), 1,
+                share_of="flash_", labels=("ssd",))
+        assert len(rep.sessions) == 16
+        for _ in range(2):                   # warm-up rounds
+            rep.decode_round(route=route)
+        _window("zamba2_fused_lockstep_round_b16",
+                lambda: rep.decode_round(route=route), 5, share_of="decode_",
+                labels=("ssd",))
+    del rep, params, model
+    torch.cuda.empty_cache()
+
+    with _labelled(layers, "moe_experts", "_expert_ffn"):
+        cfg = get_config("qwen3-moe-235b-a22b").with_overrides(num_layers=8)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        rep = Replica(model, slots=16, max_len=2048, prefill_chunk=256, device=dev)
+        rep.attach_params(params)
+        for i, n in enumerate(rng.integers(128, 1025, size=16)):
+            rep.admit(Request(f"moe-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                       dtype=np.int32)))
+        for _ in range(2):                   # warm-up rounds
+            rep.decode_round(route=route)
+        _window("qwen3_moe_fused_decode_round_b16",
+                lambda: rep.decode_round(route=route), 5, share_of="decode_",
+                labels=("moe_experts",))
     del rep, params, model
     torch.cuda.empty_cache()
     cell = ChurnConfig(n=10**6, s_avg=174 * 60, duration=1800.0,

@@ -13,8 +13,9 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
   kernels  K1 (ring_lookup64), K2 (ring_lookup_bucketed), K3
            (decode_attention), K5 (flash_attention: qwen2.5-3b's
            1024-token admit in bf16 and fp16, a ragged 1000, a non-causal
-           Sq != Sk, and f32; each case's route, tensor cores or SIMT, is
-           checked against ``kernel.route``) and K6 (ssm_scan at a
+           Sq != Sk, and f32; zamba2-7b's shared-block admit, 32 / 32 heads
+           at hd 112, in bf16 and fp16; each case's route, tensor cores or
+           SIMT, is checked against ``kernel.route``) and K6 (ssm_scan at a
            falcon-mamba-7b admit's shape on random f32 inputs) at the main
            path's shapes, each held against its plain PyTorch version on
            the same inputs (K1/K2 exactly, also K2 at the fused round's 32
@@ -68,6 +69,20 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            admits of 128-1024 tokens, 16 lockstep rounds fused, then the
            same unfused.  Fused and unfused tokens equal, owners the
            router's, 64 K6 launches per admit, finite logits;
+  serve_hybrid  zamba2-7b at full size (81 Mamba-2 layers, d 3584, 112 SSD
+           heads of 64, state 64, one shared attention block at 14 sites,
+           32 / 32 heads of hd 112; 6.75 B parameters) on the serve_dense
+           path (``FAMILY_SERVE``): four Replicas of 16 slots x 2048
+           positions, 16 whole-prompt admits of 128-1024 tokens, 16
+           lockstep rounds fused, then unfused; the serve_dense gates, with
+           K3 one tensor-core launch a shared site and replica round, K5
+           one a shared site and admit (hd 112 on the tensor cores), and a
+           whole prefill probe's first token the fused stream's;
+  serve_moe  qwen3-moe-235b-a22b at full width (d 4096, 64 / 4 heads of
+           hd 128, 128 experts top 8 of d_ff 1536, vocabulary 151,936),
+           depth cut 94 -> 8 layers: the serve_dense path and gates
+           (chunked admits, per-slot rounds, K3 at g 16), then 4
+           whole-prompt admits with one tensor-core K5 launch a layer;
   churn    K4 (edra_tree) on one 2^21-pair batch at n ~ 10^6 in its three
            variants at the D1HT operating point of the cell, held
            against its plain version (integers exactly, and the acks
@@ -133,15 +148,25 @@ N_PEERS = 1_000_000
 CAPACITY = 1 << 20                 # device table of 10^6 peers
 BUCKETS = 1 << 15                  # their directory under a 32 MiB budget
 N_KEYS = 1 << 20
-# (B, S, dtype): bf16 and fp16 on the tensor-core route, f32 on the SIMT one
-K3_SHAPES = [(1, 2048, "bfloat16"), (8, 2048, "bfloat16"),
-             (16, 2048, "bfloat16"), (32, 2048, "bfloat16"),
-             (32, 2000, "bfloat16"), (16, 2048, "float16"),
-             (16, 2048, "float32")]
-K3_MAIN = (16, 2048, "bfloat16")   # the largest decode bucket on the path
+H, HKV, HD = 16, 2, 128            # qwen2.5-3b attention
+ZAMBA2_HEADS = (32, 32, 112)       # zamba2-7b's shared block (g 1, hd 112)
+QWEN3_MOE_HEADS = (64, 4, 128)     # qwen3-moe-235b-a22b (g 16)
+# (B, S, dtype, (H, Hkv, hd)): bf16 and fp16 on the tensor-core route, f32
+# on the SIMT one; qwen2.5-3b's heads, then the decode bucket of 16 at the
+# heads of the hybrid and MoE serve paths
+QWEN_HEADS = (H, HKV, HD)
+K3_SHAPES = [(1, 2048, "bfloat16", QWEN_HEADS),
+             (8, 2048, "bfloat16", QWEN_HEADS),
+             (16, 2048, "bfloat16", QWEN_HEADS),
+             (32, 2048, "bfloat16", QWEN_HEADS),
+             (32, 2000, "bfloat16", QWEN_HEADS),
+             (16, 2048, "float16", QWEN_HEADS),
+             (16, 2048, "float32", QWEN_HEADS),
+             (16, 2048, "bfloat16", ZAMBA2_HEADS),
+             (16, 2048, "bfloat16", QWEN3_MOE_HEADS)]
+K3_MAIN = (16, 2048, "bfloat16", QWEN_HEADS)   # the largest decode bucket
 K3_TOL = {"bfloat16": BF16_ATOL, "float16": BF16_ATOL, "float32": 2e-5}
 K2_ROUND_KEYS = 32                 # the fused decode round's full house
-H, HKV, HD = 16, 2, 128            # qwen2.5-3b attention
 CHURN = dict(n=10**6, s_avg=174 * 60, duration=1800.0, warmup=300.0,
              seed=1)               # bench_maintenance.py --full, 10^6 row
 K4_PAIRS = 1 << 21                 # pairs per launch of simulate_churn
@@ -158,6 +183,11 @@ LAT_SIZES = (800, 1600, 2400, 3200, 4000)    # Fig. 5's ring sizes
 K5_CASES = [(1, 1024, 1024, True, "bfloat16"), (1, 1000, 1000, True, "bfloat16"),
             (1, 512, 1024, False, "bfloat16"), (1, 1024, 1024, True, "float16"),
             (1, 1024, 1024, True, "float32")]
+# then a 1024-token whole-prompt admit at zamba2-7b's shared block (the
+# tensor-core route on zero-filled hd-128 tiles) and at qwen3-moe's heads
+K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
+                   ((1, 1024, 1024, True, "float16"), ZAMBA2_HEADS),
+                   ((1, 1024, 1024, True, "bfloat16"), QWEN3_MOE_HEADS)]
 # repro's (tests/test_kernels.py); fp16, finer than bf16, takes bf16's
 K5_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 2e-5}
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
@@ -178,6 +208,14 @@ K7_KEYS = 1 << 20
 DENSE_SERVE = [("internlm2-20b", None, 16, 16, 16, 4),
                ("nemotron-4-15b", 8, 16, 8, 8, 4),
                ("command-r-35b", 8, 16, 8, 8, 4)]
+# the hybrid and MoE families, one phase each (the same row layout):
+# zamba2-7b at full size (81 Mamba-2 layers and 14 shared-block sites,
+# 13.5 GB of bf16 weights, 9.0 GB of cache a replica: whole-prompt admits,
+# lockstep rounds); qwen3-moe-235b-a22b at full width with depth cut 94 ->
+# 8 layers (its experts take 4.83 GB a layer, ~450 GB at full depth):
+# chunked admits, per-slot rounds, and 4 whole-prompt admits on K5 at g 16
+FAMILY_SERVE = [("serve_hybrid", ("zamba2-7b", None, 16, 16, 16, 0)),
+                ("serve_moe", ("qwen3-moe-235b-a22b", 8, 16, 16, 16, 4))]
 # repro's DES <-> vectorized twin tests (tests/test_jax_sim.py): config,
 # bandwidth-ratio band, largest one-hop gap
 DES_TWIN = {
@@ -509,16 +547,16 @@ def main() -> int:
 
     k3_rows = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for b, s, dtype_name in K3_SHAPES:
+    for b, s, dtype_name, (h3, hkv3, hd3) in K3_SHAPES:
         dtype = getattr(torch, dtype_name)
         size = torch.finfo(dtype).bits // 8
-        per = 2 * b * s * HKV * HD * size         # K and V bytes
+        per = 2 * b * s * hkv3 * hd3 * size       # K and V bytes
         copies = max(1, math.ceil(128e6 / per))   # cycle past the 50 MB L2
-        q = torch.randn((copies, b, H, HD), generator=gen, device=dev,
+        q = torch.randn((copies, b, h3, hd3), generator=gen, device=dev,
                         dtype=dtype)
-        k = torch.randn((copies, b, s, HKV, HD), generator=gen, device=dev,
+        k = torch.randn((copies, b, s, hkv3, hd3), generator=gen, device=dev,
                         dtype=dtype)
-        v = torch.randn((copies, b, s, HKV, HD), generator=gen, device=dev,
+        v = torch.randn((copies, b, s, hkv3, hd3), generator=gen, device=dev,
                         dtype=dtype)
         length = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
                                dtype=torch.int32)
@@ -527,13 +565,15 @@ def main() -> int:
         got3 = fn3(q[0], k[0], v[0], length)
         torch.cuda.synchronize()
         route3 = "tc" if fn3.tc_launches > tc_before else "simt"
-        if route3 != da_kernel.route(dtype, HD, H // HKV):
-            raise AssertionError(f"K3 {dtype_name} took the {route3} route")
+        want3 = "simt" if dtype == torch.float32 else "tc"
+        if route3 != want3 or route3 != da_kernel.route(dtype, hd3, h3 // hkv3):
+            raise AssertionError(f"K3 {dtype_name} at {h3}/{hkv3} heads, hd "
+                                 f"{hd3} took the {route3} route")
         plain3 = decode_attention_ref(q[0], k[0], v[0], length)
         err3 = float((got3.float() - plain3.float()).abs().max())
         if not err3 <= K3_TOL[dtype_name]:
-            raise AssertionError(f"K3 at B={b}, S={s}, {dtype_name}: max err "
-                                 f"{err3}")
+            raise AssertionError(f"K3 at B={b}, S={s}, {h3}/{hkv3} heads, hd "
+                                 f"{hd3}, {dtype_name}: max err {err3}")
         # the yardstick: SDPA with GQA and a length mask, on (B,Hkv,S,hd)
         # copies of the cache made outside the timed calls
         kt, vt = k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous()
@@ -541,11 +581,12 @@ def main() -> int:
             :, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         valid = int(length.sum())
-        bb, by3 = bound(valid * HKV * HD * size * 2 + 2 * b * H * HD * size
-                        + 4 * b, 4 * valid * H * HD,
+        bb, by3 = bound(valid * hkv3 * hd3 * size * 2 + 2 * b * h3 * hd3 * size
+                        + 4 * b, 4 * valid * h3 * hd3,
                         FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k3_rows.append({
-            "B": b, "S": s, "dtype": dtype_name, "kernel_route": route3,
+            "B": b, "S": s, "H": h3, "Hkv": hkv3, "hd": hd3,
+            "dtype": dtype_name, "kernel_route": route3,
             "max_abs_err": err3, "tolerance": K3_TOL[dtype_name],
             **sdpa_in_turns(lambda i: fn3(q[i % copies], k[i % copies],
                                           v[i % copies], length),
@@ -557,46 +598,64 @@ def main() -> int:
             "bound_ms": bb, "bound_by": by3})
         del q, k, v, kt, vt
     torch.cuda.empty_cache()
-    main3 = next(r for r in k3_rows
-                 if (r["B"], r["S"], r["dtype"]) == K3_MAIN)
+    summary = ("kernel_route", "max_abs_err", "tolerance", "ms", "plain_ms",
+               "library_ms", "library_call", "kernel_over_library",
+               "ratio_min_max", "bound_ms", "bound_by")
+
+    def k3_row(b, s, dtype_name, heads):
+        return next(r for r in k3_rows
+                    if (r["B"], r["S"], r["dtype"], (r["H"], r["Hkv"], r["hd"]))
+                    == (b, s, dtype_name, heads))
+
+    def heads_text(heads):
+        return f"H={heads[0]}, Hkv={heads[1]}, hd={heads[2]}"
+
+    main3 = k3_row(*K3_MAIN)
     results["K3"] = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention_tc.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
-        "shape": f"B={K3_MAIN[0]}, H={H}, Hkv={HKV}, hd={HD}, S={K3_MAIN[1]}, "
+        "shape": f"B={K3_MAIN[0]}, {heads_text(QWEN_HEADS)}, S={K3_MAIN[1]}, "
                  "bf16, lengths in [1, S]",
-        **{key: main3[key] for key in ("kernel_route", "max_abs_err",
-                                       "tolerance", "ms", "plain_ms",
-                                       "library_ms", "library_call",
-                                       "kernel_over_library", "ratio_min_max",
-                                       "bound_ms", "bound_by")}}
+        **{key: main3[key] for key in summary}}
+    for key, heads, model_name in (("hd112", ZAMBA2_HEADS, "zamba2-7b"),
+                                   ("g16", QWEN3_MOE_HEADS, "qwen3-moe")):
+        row = k3_row(16, 2048, "bfloat16", heads)
+        results["K3"][key] = {
+            "shape": f"B=16, {heads_text(heads)}, S=2048, bf16, lengths in "
+                     f"[1, S] ({model_name} decode bucket of 16)",
+            **{k: row[k] for k in summary}}
     k5_rows = []
-    for b, sq, sk, causal, dtype_name in K5_CASES:
+    for (b, sq, sk, causal, dtype_name), (h5, hkv5, hd5) in \
+            [(c, QWEN_HEADS) for c in K5_CASES] + K5_FAMILY_CASES:
         dtype = getattr(torch, dtype_name)
-        q = torch.randn((b, sq, H, HD), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, sk, HKV, HD), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, sk, HKV, HD), generator=gen, device=dev).to(dtype)
+        q = torch.randn((b, sq, h5, hd5), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sk, hkv5, hd5), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, hkv5, hd5), generator=gen, device=dev).to(dtype)
         tc_before = fa_ops.flash_attention.tc_launches
         got5 = fa_ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         route5 = "tc" if fa_ops.flash_attention.tc_launches > tc_before \
             else "simt"
-        if route5 != fa_kernel.route(dtype, HD):
-            raise AssertionError(f"K5 {dtype_name} took the {route5} route")
+        want5 = "simt" if dtype == torch.float32 else "tc"
+        if route5 != want5 or route5 != fa_kernel.route(dtype, hd5):
+            raise AssertionError(f"K5 {dtype_name} at {h5}/{hkv5} heads, hd "
+                                 f"{hd5} took the {route5} route")
         plain5 = flash_attention_ref(q, k, v, causal=causal)
         err5 = float((got5.float() - plain5.float()).abs().max())
         if not err5 <= K5_TOL[dtype_name]:
-            raise AssertionError(f"K5 at {(b, sq, sk, causal, dtype_name)}: "
-                                 f"max err {err5}")
+            raise AssertionError(f"K5 at {(b, sq, sk, causal, dtype_name)}, "
+                                 f"{h5}/{hkv5} heads, hd {hd5}: max err "
+                                 f"{err5}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
         b5, by5 = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
-                        4 * b * H * HD * pairs,
+                        4 * b * h5 * hd5 * pairs,
                         FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k5_rows.append({
-            "B": b, "Sq": sq, "Sk": sk, "causal": causal, "dtype": dtype_name,
-            "kernel_route": route5,
+            "B": b, "Sq": sq, "Sk": sk, "H": h5, "Hkv": hkv5, "hd": hd5,
+            "causal": causal, "dtype": dtype_name, "kernel_route": route5,
             "max_abs_err": err5, "tolerance": K5_TOL[dtype_name],
             **sdpa_in_turns(lambda i: fa_ops.flash_attention(q, k, v,
                                                              causal=causal),
@@ -609,15 +668,22 @@ def main() -> int:
     main5 = k5_rows[0]
     results["K5"] = {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
-        "shape": f"B=1, S={main5['Sq']}, H={H}, Hkv={HKV}, hd={HD}, bf16, "
+        "shape": f"B=1, S={main5['Sq']}, {heads_text(QWEN_HEADS)}, bf16, "
                  "causal (qwen2.5-3b whole-prompt admit)",
-        **{key: main5[key] for key in ("kernel_route", "max_abs_err",
-                                       "tolerance", "ms", "plain_ms",
-                                       "library_ms", "library_call",
-                                       "kernel_over_library", "ratio_min_max",
-                                       "bound_ms", "bound_by")}}
+        **{key: main5[key] for key in summary}}
+    for key, heads, site in (("hd112", ZAMBA2_HEADS,
+                              "zamba2-7b whole-prompt admit, a shared site"),
+                             ("g16", QWEN3_MOE_HEADS,
+                              "qwen3-moe whole-prompt admit, a layer")):
+        row = next(r for r in k5_rows
+                   if (r["H"], r["Hkv"], r["hd"]) == heads
+                   and r["dtype"] == "bfloat16")
+        results["K5"][key] = {
+            "shape": f"B=1, S={row['Sq']}, {heads_text(heads)}, bf16, causal "
+                     f"({site})",
+            **{k: row[k] for k in summary}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
           "K3": k3_rows, "K5": k5_rows, "K6_f32": k6_f32})
@@ -747,11 +813,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     for key in ("K1", "K2", "K3"):
         results[key]["launches"] = launches[key]
-    dense = serve_dense_phase(dev, rng)
+    dense = serve_models_phase(dev, rng, "serve_dense", DENSE_SERVE)
     for key in ("K1", "K2", "K3", "K5"):
         results[key]["launches_serve_dense"] = {
             arch: counts[key] for arch, counts in dense.items()}
     results["K6"] = serve_ssm_phase(dev, rng)
+    for phase, row in FAMILY_SERVE:
+        counts = serve_models_phase(dev, rng, phase, [row])[
+            get_config(row[0]).name]
+        for key in ("K1", "K2", "K3"):
+            results[key][f"launches_{phase}"] = counts[key]
+        results["K5"][f"launches_{phase}"] = counts["K5_serve"] + counts["K5"]
     results["K4"], churn = churn_phase(dev)
     latency_phase(dev, churn)
     results["K7"]["launches"] = quickstart_phase(dev)
@@ -772,7 +844,7 @@ def serve_rounds(model, params, mem, reqs, owner_of, dev, *, slots: int,
     routed owner, then ``rounds`` cluster rounds, fused (each replica
     round resolves its sessions' owners on K2 and must find itself) or
     not.  Returns (streams, prefill s, ms per cluster round, replica
-    rounds, sessions per replica)."""
+    rounds, sessions per replica, GiB of cache a replica)."""
     import torch
     from repro_torch.serve import Replica
     reps = {}
@@ -780,6 +852,8 @@ def serve_rounds(model, params, mem, reqs, owner_of, dev, *, slots: int,
         reps[node] = Replica(model, slots=slots, max_len=2048,
                              prefill_chunk=256, device=dev)
         reps[node].attach_params(params)
+    cache_gib = sum(t.numel() * t.element_size()
+                    for t in next(iter(reps.values())).cache.values()) / 2**30
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     streams = {r.session_id: [reps[owner_of[r.session_id]].admit(r)]
@@ -803,36 +877,44 @@ def serve_rounds(model, params, mem, reqs, owner_of, dev, *, slots: int,
     buckets = sorted(len(rep.sessions) for rep in reps.values())
     del reps
     torch.cuda.empty_cache()
-    return streams, prefill_s, round_ms, replica_rounds, buckets
+    return streams, prefill_s, round_ms, replica_rounds, buckets, cache_gib
 
 
-def serve_dense_phase(dev, rng) -> dict:
-    """The rest of the dense family on the path the qwen serve phase runs
-    (``DENSE_SERVE``): each model at full width from seeded random
-    weights, four ``Membership`` nodes with one ``Replica`` each, its
-    requests routed (owners against a numpy bisect), ``rounds`` cluster
-    rounds fused then unfused, tokens equal; K2 one launch a fused replica
-    round, K3 one a layer and replica round, all on the tensor cores; then
-    the first ``whole`` requests admitted whole on K5 (one tensor-core
-    launch a layer and admit), and a chunked prefill probe whose first
-    token must be the fused stream's.  Counters are zeroed just before
-    each model's run and read just after.  Returns each model's launches
-    by kernel."""
+def serve_models_phase(dev, rng, phase: str, rows) -> dict:
+    """Models on the path the qwen serve phase runs, one row of ``rows``
+    each (``DENSE_SERVE``, ``FAMILY_SERVE``): each at full width from
+    seeded random weights, four ``Membership`` nodes with one ``Replica``
+    each, its requests routed (owners against a numpy bisect), ``rounds``
+    cluster rounds fused then unfused, tokens equal; K2 one launch a fused
+    replica round, K3 one an attention layer (the hybrid's: a shared site)
+    and replica round, all on the tensor cores.  A family with chunked
+    prefill (dense, MoE) admits in 256-token chunks, launches no K5 there,
+    its chunked prefill probe's first token is the fused stream's, and then
+    the first ``whole`` requests are admitted whole on K5 (one tensor-core
+    launch an attention layer and admit); a family that admits whole
+    prompts (the hybrid) launches K5 once a shared site and admit, on the
+    tensor cores, and its whole prefill probe's first token is the fused
+    stream's.  Counters are zeroed just before each model's run and read
+    just after.  Returns each model's launches by kernel."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ring_lookup import ops as rl_ops
     from repro_torch.models import Model
+    from repro_torch.models.hybrid import num_shared_sites
     from repro_torch.runtime import Membership
     from repro_torch.serve import Request, SessionRouter
     from repro_torch.serve.server import session_key
     out = {}
-    for arch, layers, slots, n_req, rounds, whole in DENSE_SERVE:
+    for arch, layers, slots, n_req, rounds, whole in rows:
         full = get_config(arch)
         cfg = full if layers is None else full.with_overrides(
             num_layers=layers)
         model = Model(cfg)
+        chunked = model.supports_chunked_prefill
+        attn_layers = num_shared_sites(cfg) if cfg.shared_attn_every \
+            else cfg.num_layers
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -854,6 +936,7 @@ def serve_dense_phase(dev, rng) -> dict:
         for fn in counters:
             fn.launches = 0
         da_ops.decode_attention.tc_launches = 0
+        fa_ops.flash_attention.tc_launches = 0
         sids = [r.session_id for r in reqs]
         owner_of = dict(zip(sids, router.route(sids)))
         act = mem.ring_state.active_ids()
@@ -870,7 +953,9 @@ def serve_dense_phase(dev, rng) -> dict:
         launches = {"K1": rl_ops.ring_lookup64.launches,
                     "K2": rl_ops.ring_lookup_bucketed.launches,
                     "K3": da_ops.decode_attention.launches,
-                    "K3_tc": da_ops.decode_attention.tc_launches}
+                    "K3_tc": da_ops.decode_attention.tc_launches,
+                    "K5_serve": fa_ops.flash_attention.launches,
+                    "K5_serve_tc": fa_ops.flash_attention.tc_launches}
         if fused[0] != unfused[0]:
             raise AssertionError(f"{arch}: fused and unfused token streams "
                                  "differ")
@@ -880,37 +965,58 @@ def serve_dense_phase(dev, rng) -> dict:
             raise AssertionError(f"{arch}: tokens out of range or streams "
                                  "cut short")
         rr = fused[3] + unfused[3]
+        k5_serve = 0 if chunked else attn_layers * 2 * n_req
         if k2_fused != fused[3] or launches["K2"] != fused[3] \
-                or launches["K3"] != cfg.num_layers * rr \
-                or launches["K3_tc"] != launches["K3"] or launches["K1"] < 1:
+                or launches["K3"] != attn_layers * rr \
+                or launches["K3_tc"] != launches["K3"] or launches["K1"] < 1 \
+                or launches["K5_serve"] != k5_serve \
+                or launches["K5_serve_tc"] != k5_serve:
             raise AssertionError(f"{arch}: launch counts {launches} off the "
                                  "main path")
         probe = reqs[0]
         cache = model.init_cache(1, 2048, device=dev)
-        seg = np.zeros(256 * math.ceil(len(probe.prompt) / 256), np.int32)
-        seg[:len(probe.prompt)] = probe.prompt
-        for off in range(0, seg.size, 256):
-            logits, cache = model.prefill_chunk(
-                params, torch.from_numpy(seg[off:off + 256]).to(dev)[None],
-                cache, off)
-        last = logits[0, (len(probe.prompt) - 1) % 256]
+        if chunked:
+            seg = np.zeros(256 * math.ceil(len(probe.prompt) / 256), np.int32)
+            seg[:len(probe.prompt)] = probe.prompt
+            for off in range(0, seg.size, 256):
+                logits, cache = model.prefill_chunk(
+                    params, torch.from_numpy(seg[off:off + 256]).to(dev)[None],
+                    cache, off)
+            last = logits[0, (len(probe.prompt) - 1) % 256]
+        else:
+            logits, cache = model.prefill(
+                params, {"tokens": torch.from_numpy(probe.prompt).to(dev)[None]},
+                cache)
+            last = logits[0]
         if not bool(torch.isfinite(logits).all()) \
                 or int(torch.argmax(last)) != fused[0][probe.session_id][0]:
             raise AssertionError(f"{arch}: prefill logits not finite / first "
                                  "token differs")
         del cache, logits, last
-        k5 = whole_prompt_admits(model, params, reqs[:whole], fused[0], dev)
-        launches["K5"] = k5
+        launches["K5"] = whole_prompt_admits(
+            model, params, reqs[:whole], fused[0], dev) if whole else 0
         prompt_tokens = sum(len(r.prompt) for r in reqs)
-        emit({"phase": "serve_dense", "model": cfg.name, "params": n_params,
+        shape = {"d_model": cfg.d_model,
+                 "heads": [cfg.num_heads, cfg.num_kv_heads],
+                 "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab, "act": cfg.act}
+        if cfg.shared_attn_every:
+            shape.update(mamba_version=cfg.mamba_version,
+                         d_inner=cfg.ssm_expand * cfg.d_model,
+                         ssm_heads=cfg.ssm_expand * cfg.d_model
+                         // cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
+                         shared_sites=attn_layers)
+        if cfg.moe_experts:
+            shape.update(experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                         moe_d_ff=cfg.moe_d_ff)
+        emit({"phase": phase, "model": cfg.name, "params": n_params,
               "layers": cfg.num_layers, "full_layers": full.num_layers,
               "cut": None if layers is None else
               f"depth {full.num_layers} -> {layers} layers, full width",
-              "d_model": cfg.d_model, "heads": [cfg.num_heads,
-                                                cfg.num_kv_heads],
-              "d_ff": cfg.d_ff, "vocab": cfg.vocab, "act": cfg.act,
-              "init_s": init_s, "slots": slots, "requests": n_req,
+              **shape, "init_s": init_s, "slots": slots, "requests": n_req,
+              "admits": "256-token chunks" if chunked else "whole prompts",
               "sessions_per_replica": fused[4], "replica_rounds": fused[3],
+              "cache_gib_per_replica": fused[5],
               "prompt_tokens": prompt_tokens,
               "prefill_tokens_per_s": {"fused": prompt_tokens / fused[1],
                                        "unfused": prompt_tokens / unfused[1]},

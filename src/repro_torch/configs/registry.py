@@ -1,5 +1,6 @@
 """Architecture registry of the port: the configs it can serve (the dense
-family and the Mamba-1 SSM family).
+family, the Mamba-1 SSM family, the Mamba-2 hybrid with its shared
+attention block, and the MoE family).
 
 Each entry provides the FULL config and a ``smoke()`` reduction of the
 same family (small depth/width/vocab) for CPU tests.
@@ -11,7 +12,7 @@ import importlib
 from .base import ModelConfig
 
 ARCH_IDS = ["qwen2.5-3b", "internlm2-20b", "nemotron-4-15b", "command-r-35b",
-            "falcon-mamba-7b"]
+            "falcon-mamba-7b", "zamba2-7b", "qwen3-moe-235b-a22b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

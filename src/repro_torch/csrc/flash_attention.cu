@@ -14,7 +14,7 @@
 // bind.  This kernel runs on the f32 CUDA cores (67 TFLOP/s, so >= 64 us)
 // and is K5's route for f32 inputs and for hd in {16, 32}: repro's f32
 // tolerance of 2e-5 is beyond TF32 or split-bf16 products.  bf16 and fp16
-// at hd 64 and 128 take the tensor-core kernel (flash_attention_tc.cu,
+// at hd 64, 112 and 128 take the tensor-core kernel (flash_attention_tc.cu,
 // wgmma with p split into two 16-bit parts).  The design:
 //   * one block of 256 threads per (query tile of 64 rows, batch x head);
 //     the TPU kernel's sequential kv grid axis becomes a loop over kv
@@ -230,6 +230,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
     case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
     case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
+    case 112: return launch<T, 112>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -238,7 +239,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out alike);
-// q/out: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), contiguous; hd in {16, 32, 64, 128}
+// q/out: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), contiguous; hd in {16, 32, 64, 112, 128}
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Sq, int Sk, int H, int Hkv, int hd,
                                       int causal, int dtype, float scale, void* stream) {

@@ -1,6 +1,6 @@
 // Flash attention (forward) on Hopper's tensor cores (sm_90a): K5's route
-// for bf16 and fp16 inputs at hd in {64, 128}.  (f32, and hd in {16, 32},
-// take the f32 SIMT kernel of flash_attention.cu.)
+// for bf16 and fp16 inputs at hd in {64, 112, 128}.  (f32, and hd in {16,
+// 32}, take the f32 SIMT kernel of flash_attention.cu.)
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention_pallas
 // (body _flash_kernel) and computes what flash_attention.cu computes:
@@ -30,7 +30,11 @@
 //     over (hd, heads, positions, batch) so a box reads one head's rows at
 //     stride heads * hd, 128-byte swizzle: the layout wgmma's descriptors
 //     read).  A 128-byte row holds 64 values, so hd 128 takes two boxes a
-//     tile.  K and V go through rings of two stages each, one mbarrier a
+//     tile.  hd 112 (zamba2's shared block) runs on the hd-128 tiles: the
+//     tensor maps carry the true inner extent, 112, so the second box of a
+//     row reads columns 64-127 and the TMA fills 112-127 with zeros.  Those
+//     columns add 0 to q k^T and make O's columns 112-127 zero, which are
+//     never stored.  The price is 128/112 of the MMA work of an exact tile.  K and V go through rings of two stages each, one mbarrier a
 //     stage, so a K stage is refilled as soon as its q K^T is done and a V
 //     stage as soon as its p . v is: tiles j + 1 and j + 2 load while tile
 //     j computes.  q loads once.
@@ -242,12 +246,14 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
 // each 8-column chunk c, at d[4 c + 2 i + e].  The A operand of k-step kk
 // (columns 16 kk .. 16 kk + 15) is {d[8kk..8kk+1], d[8kk+2..+3],
 // d[8kk+4..+5], d[8kk+6..+7]} packed in pairs: chunks 2 kk and 2 kk + 1.
+// HD is the tile's width; hd <= HD the tensors' head dim (columns hd .. HD
+// - 1 of every tile arrive as zeros and are not stored).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, T* __restrict__ out, int Sq,
-                    int Sk, int H, int Hkv, float scale, int causal) {
+                    int Sk, int H, int Hkv, int hd, float scale, int causal) {
   using L = Layout<HD>;
   constexpr int NB = L::kBoxes;
   const int bh = blockIdx.x;
@@ -456,20 +462,21 @@ __global__ void __launch_bounds__(kThreads, 2)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const size_t row_stride = static_cast<size_t>(H) * HD;
+  const size_t row_stride = static_cast<size_t>(H) * hd;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qpos = q0 + r0 + 8 * i;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* orow = out + (static_cast<size_t>(b) * Sq + qpos) * row_stride +
-              static_cast<size_t>(h) * HD;
+              static_cast<size_t>(h) * hd;
 #pragma unroll
     for (int bx = 0; bx < NB; ++bx)
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        store2<T>(orow + bx * kBoxCols + 8 * c + cq, o[bx][4 * c + 2 * i] * inv,
-                  o[bx][4 * c + 2 * i + 1] * inv);
+        if (bx * kBoxCols + 8 * c < hd)   // hd is a multiple of 8
+          store2<T>(orow + bx * kBoxCols + 8 * c + cq, o[bx][4 * c + 2 * i] * inv,
+                    o[bx][4 * c + 2 * i + 1] * inv);
   }
 }
 
@@ -497,7 +504,9 @@ EncodeTiled encode_tiled() {
 }
 
 // (B, S, heads, hd) contiguous 16-bit tensor -> a map of 64 x 64 boxes over
-// (hd, heads, S, B), 128-byte swizzle, zeros past every edge
+// (hd, heads, S, B), 128-byte swizzle, zeros past every edge (columns past
+// hd too: the map's inner extent is hd, the boxes tile HD).  The strides
+// (2 hd bytes and up) are multiples of 16 for hd % 8 == 0.
 int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int hd, int heads,
              int seq, int batch) {
   const EncodeTiled encode = encode_tiled();
@@ -518,14 +527,14 @@ int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int hd
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
-           int Hkv, float scale, int causal, cudaStream_t stream) {
+           int Hkv, int hd, float scale, int causal, cudaStream_t stream) {
   const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap qm, km, vm;
-  int err = make_map(&qm, type, q, HD, H, Sq, B);
-  if (!err) err = make_map(&km, type, k, HD, Hkv, Sk, B);
-  if (!err) err = make_map(&vm, type, v, HD, Hkv, Sk, B);
+  int err = make_map(&qm, type, q, hd, H, Sq, B);
+  if (!err) err = make_map(&km, type, k, hd, Hkv, Sk, B);
+  if (!err) err = make_map(&vm, type, v, hd, Hkv, Sk, B);
   if (err) return err;
   const int smem = Layout<HD>::kSmem;
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -533,7 +542,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
   flash_tc_kernel<T, HD><<<grid, kThreads, smem, stream>>>(qm, km, vm, static_cast<T*>(out), Sq,
-                                                           Sk, H, Hkv, scale, causal);
+                                                           Sk, H, Hkv, hd, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -541,8 +550,9 @@ template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
               int H, int Hkv, int hd, float scale, int causal, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, scale, causal, stream);
+    case 112:  // on the hd-128 tiles, columns 112-127 zero-filled by the TMA
+    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, scale, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -551,7 +561,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 
 // dtype: 1 = bfloat16, 2 = float16 (q, k, v and out alike); q/out:
 // (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), contiguous, 16-byte aligned;
-// hd in {64, 128}.  The arguments are flash_attention_launch's.
+// hd in {64, 112, 128}.  The arguments are flash_attention_launch's.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
                                          int B, int Sq, int Sk, int H, int Hkv, int hd,
                                          int causal, int dtype, float scale, void* stream) {

@@ -4,8 +4,9 @@ and ``csrc/flash_attention_tc.cu``).
 K5 ``flash_attention_cuda`` replaces ``flash_attention_pallas``
 (``repro/kernels/flash_attention/kernel.py``) on two routes, picked from
 q's dtype and head dim alone before any launch (``route``): bf16 and fp16
-at hd 64 and 128 run on the tensor cores (wgmma, TMA), everything else
-(f32, hd 16 and 32) on the f32 SIMT kernel, whose 2e-5 tolerance the
+at hd 64, 112 and 128 run on the tensor cores (wgmma, TMA; hd 112 on the
+hd-128 tiles, whose last 16 columns the TMA fills with zeros), everything
+else (f32, hd 16 and 32) on the f32 SIMT kernel, whose 2e-5 tolerance the
 tensor cores cannot meet.  The design notes sit in the CUDA sources.  The
 output is allocated here with ``torch.empty``; the kernels launch on the
 current stream and do not synchronise.
@@ -19,14 +20,14 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (16, 32, 64, 128)       # the SIMT kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 112, 128)  # the SIMT kernel's instantiations
 TC_DTYPES = (torch.bfloat16, torch.float16)
-TC_HEAD_DIMS = (64, 128)            # the tensor-core kernel's
+TC_HEAD_DIMS = (64, 112, 128)       # the tensor-core kernel's
 BQ = 64                             # query rows per block (both kernels)
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """``"tc"`` (tensor cores) for bf16/fp16 at hd 64 or 128, else
+    """``"tc"`` (tensor cores) for bf16/fp16 at hd 64, 112 or 128, else
     ``"simt"``."""
     return "tc" if dtype in TC_DTYPES and hd in TC_HEAD_DIMS else "simt"
 

@@ -1,5 +1,6 @@
-"""Model facade of the port (``repro.models.model.Model``): the dense
-family (``transformer``) and the Mamba-1 SSM family (``hybrid``).
+"""Model facade of the port (``repro.models.model.Model``): the dense and
+MoE families (``transformer``), and the SSM and hybrid families
+(``hybrid``: Mamba-1 or Mamba-2 layers, zamba2's shared attention block).
 
     m = Model(cfg)
     params = m.init(generator, device=...)      # random weights on device
@@ -26,17 +27,24 @@ Params = Dict[str, Any]
 
 
 def _module(cfg: ModelConfig):
-    """The family's module, as ``repro.models.model._module``; families
-    not ported yet raise."""
-    if cfg.family == "dense" and not cfg.moe_experts \
-            and not cfg.mla_kv_lora:
-        return transformer
-    if cfg.family == "ssm":
-        hybrid.require_ported(cfg)
+    """The family's module, as ``repro.models.model._module``; what is not
+    ported yet raises, naming its ROADMAP item."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("the encoder-decoder family is not ported "
+                                  "yet: ROADMAP queue 1, item 2")
+    if cfg.family == "vlm":
+        raise NotImplementedError("the VLM family is not ported yet: "
+                                  "ROADMAP queue 1, item 2")
+    if cfg.family in ("ssm", "hybrid"):
         return hybrid
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense and Mamba-1 ssm "
-        "only): ROADMAP queue 1, item 5")
+    if cfg.mla_kv_lora:
+        raise NotImplementedError("MLA attention (mla_kv_lora > 0) is not "
+                                  "ported yet: ROADMAP queue 1, item 2")
+    if cfg.moe_experts and cfg.moe_impl == "ep":
+        raise NotImplementedError("the expert-parallel MoE (moe_impl='ep') "
+                                  "is not ported yet: ROADMAP queue 1, "
+                                  "item 4")
+    return transformer
 
 
 def _on(device) -> torch.device:
@@ -70,18 +78,20 @@ class Model:
     @property
     def supports_per_slot_decode(self) -> bool:
         """decode_step accepts a (B,) per-slot index tensor (the dense
-        family; the SSM family decodes in lockstep)."""
+        and MoE families; the SSM and hybrid families decode in
+        lockstep)."""
         return _module(self.cfg) is transformer
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """prefill_chunk can continue a prefill mid-cache (the dense
-        family; an SSM prefill is one whole-prompt scan)."""
+        """prefill_chunk can continue a prefill mid-cache (the dense and
+        MoE families; an SSM or hybrid prefill is one whole prompt)."""
         return _module(self.cfg) is transformer
 
     def init_cache(self, batch: int, max_len: int, *, device=None):
-        """Dense: the KV cache for ``max_len`` positions; SSM: the
-        recurrent state, whose size does not depend on ``max_len``."""
+        """Dense and MoE: the KV cache for ``max_len`` positions; SSM: the
+        recurrent state, whose size does not depend on ``max_len``;
+        hybrid: the state and the shared sites' KV cache."""
         return _module(self.cfg).init_cache(self.cfg, batch, max_len,
                                             _on(device))
 
@@ -94,7 +104,7 @@ class Model:
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache,
                       index: int) -> Tuple[torch.Tensor, Any]:
         """One fixed-shape prefill segment from cache position ``index``;
-        returns ALL-position logits (B, S, V).  Dense family only."""
+        returns ALL-position logits (B, S, V).  Dense and MoE only."""
         if not self.supports_chunked_prefill:
             raise NotImplementedError(
                 f"family {self.cfg.family} has no chunked prefill")

@@ -1,4 +1,6 @@
-"""Dense decoder-only transformer of the port (``repro.models.transformer``).
+"""Decoder-only transformer of the port (``repro.models.transformer``):
+the dense family, and the MoE family, whose layers take the MoE block
+(``layers.moe_block``) in place of the MLP.
 
 Parameters keep ``repro``'s tree: names, ``(in, out)`` matrices, and the
 layer weights stacked on a leading ``layers`` axis; the forward pass
@@ -23,25 +25,30 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def param_shapes(cfg: ModelConfig) -> Params:
-    """Shape tree of ``init_params`` (the dense family)."""
-    d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, n = cfg.resolved_head_dim, cfg.num_layers
-    attn = {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
-            "wo": (h * hd, d)}
-    if cfg.qkv_bias:
-        attn.update({"bq": (h * hd,), "bk": (hkv * hd,), "bv": (hkv * hd,)})
-    mlp = {"w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d)}
-    if cfg.act == "silu":                   # gated: repro's mlp_params
-        mlp["w3"] = (d, cfg.d_ff)
+    """Shape tree of ``init_params``: ``mlp`` in a dense layer, ``moe``
+    where the config has experts."""
+    d, n = cfg.d_model, cfg.num_layers
     emb = {"embedding": (cfg.vocab, d)}
     if not cfg.tie_embeddings:
         emb["lm_head"] = (d, cfg.vocab)
-    stack = {"ln1": (d,), "ln2": (d,), "attn": attn, "mlp": mlp}
+    stack = {"ln1": (d,), "ln2": (d,), "attn": L.attention_shapes(cfg)}
+    if cfg.moe_experts:
+        stack["moe"] = L.moe_shapes(cfg)
+    else:
+        stack["mlp"] = L.mlp_shapes(cfg, cfg.d_ff)
     return {
         "embed": emb,
         "layers": _map(lambda s: (n,) + s, stack),
         "ln_f": (d,),
     }
+
+
+def param_dtypes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The leaves not held in the working dtype, at their place in
+    ``param_shapes``'s tree: the MoE block's int8 experts and f32 scales
+    (``layers.moe_dtypes``)."""
+    special = L.moe_dtypes(cfg) if cfg.moe_experts else {}
+    return {"layers": {"moe": special}} if special else {}
 
 
 def _map(fn, tree):
@@ -54,9 +61,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (which must
     live on that device), with ``repro.models.layers._make``'s
-    distributions: N(0, 1/fan_in) matrices (fan_in = d_model), N(0,
-    0.02^2) embedding and head, zero biases, unit norms.  Stacked
-    weights are drawn one layer at a time to bound the f32 temporary."""
+    distributions: N(0, 1/fan_in) matrices (fan_in = d_model, the
+    router and the experts too), N(0, 0.02^2) embedding and head, zero
+    biases, unit norms; int8 expert weights quantized per expert from
+    such a draw, as ``repro``'s ``moe_params``.  Stacked weights are
+    drawn one layer at a time to bound the f32 temporary."""
     dtype = L.dt(cfg)
     shapes = param_shapes(cfg)
 
@@ -75,19 +84,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.zeros(shape, dtype=dtype, device=device)
         return draw(shape, std, stacked)
 
+    def quantized(shape, std):
+        """int8 experts (n, e, in, out) and their (n, e) scales."""
+        w = torch.empty(shape, dtype=torch.int8, device=device)
+        scale = torch.empty(shape[:2], dtype=torch.float32, device=device)
+        for i in range(shape[0]):
+            draw_i = (torch.randn(shape[1:], generator=generator,
+                                  dtype=torch.float32, device=device)
+                      * std).to(dtype)
+            w[i], scale[i] = L.quantize_experts(draw_i)
+        return w, scale
+
     inv = 1.0 / math.sqrt(cfg.d_model)
     lay = shapes["layers"]
+    embed = {k: leaf(k, s, False, 0.02)
+             for k, s in sorted(shapes["embed"].items())}
+    layers = {"ln1": leaf("ln1", lay["ln1"], True, inv),
+              "ln2": leaf("ln2", lay["ln2"], True, inv),
+              "attn": {k: leaf(k, s, True, inv)
+                       for k, s in sorted(lay["attn"].items())}}
+    ff = "moe" if cfg.moe_experts else "mlp"
+    special = param_dtypes(cfg).get("layers", {}).get(ff, {})
+    layers[ff] = {}
+    for k, s in sorted(lay[ff].items()):
+        if special.get(k) == torch.int8:
+            layers[ff][k], layers[ff][k + "_scale"] = quantized(s, inv)
+        elif k not in special:
+            layers[ff][k] = leaf(k, s, True, inv)
     return {
-        "embed": {k: leaf(k, s, False, 0.02)
-                  for k, s in sorted(shapes["embed"].items())},
-        "layers": {
-            "ln1": leaf("ln1", lay["ln1"], True, inv),
-            "ln2": leaf("ln2", lay["ln2"], True, inv),
-            "attn": {k: leaf(k, s, True, inv)
-                     for k, s in sorted(lay["attn"].items())},
-            "mlp": {k: leaf(k, s, True, inv)
-                    for k, s in sorted(lay["mlp"].items())},
-        },
+        "embed": embed,
+        "layers": layers,
         "ln_f": leaf("ln_f", shapes["ln_f"], False, inv),
     }
 
@@ -124,6 +150,8 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                        cache_index=cache_index, chunk=chunk)
     x = x + a
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe_experts:
+        return x + L.moe_block(lp["moe"], h, cfg)
     return x + L.mlp(lp["mlp"], h, cfg)
 
 

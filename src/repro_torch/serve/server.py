@@ -5,9 +5,11 @@ local lookup) decides which serving replica owns the session's KV cache.
 ``SessionRouter`` resolves whole request batches on the device through
 ``RingState.lookup`` (kernels K1/K2).  Each ``Replica`` runs continuous
 batched decode over its slots: every active slot decodes at its OWN
-cache position, with decode attention in kernel K3; a family without
-per-slot decode (the SSM family) steps its slots in lockstep and admits
-whole prompts, whose prefill scans in kernel K6.  A fused round runs
+cache position, with decode attention in kernel K3 (the dense and MoE
+families); a family without per-slot decode (SSM, hybrid) steps its
+slots in lockstep and admits whole prompts, whose prefill scans in kernel
+K6 (Mamba-1) or the plain-torch SSD (Mamba-2), and whose shared attention
+block runs K5 in the prefill and K3 in decode.  A fused round runs
 the bucketed ring lookup (K2) on the batch's session keys next to the
 gather and decode, and reads the owners back with the tokens in one
 host transfer.
@@ -327,9 +329,9 @@ class Replica:
         lengths = torch.from_numpy(self.lengths).to(dev)
         key_hi = _words(self.key_hi).to(dev)
         key_lo = _words(self.key_lo).to(dev)
-        # lockstep families (SSM) step every row at the longest active
-        # session's length, as repro's ``_index``; padding rows keep
-        # state 0 and are dropped on the way back
+        # lockstep families (SSM, hybrid) step every row at the longest
+        # active session's length, as repro's ``_index``; padding rows
+        # keep state 0 and are dropped on the way back
         lockstep = None if self.model.supports_per_slot_decode \
             else int(self.lengths[act_idx].max())
         owners = None

@@ -375,6 +375,33 @@ def test_decode_attention_at_six_query_heads_a_kv_head(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,hkv,hd", [(32, 32, 112), (64, 4, 128)])
+def test_decode_attention_at_the_hybrid_and_moe_heads(cuda, dtype, h, hkv,
+                                                      hd):
+    """zamba2-7b's shared block (32 / 32 heads: g 1, hd 112) and
+    qwen3-moe-235b-a22b's attention (64 / 4 heads: g 16, hd 128) at a
+    decode bucket of 16, S 2048: one launch, on the tensor cores."""
+    b, s = 16, 2048
+    g = torch.Generator(device=cuda).manual_seed(h * hd)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    length = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    length[:3] = torch.tensor([1, s, 129], dtype=torch.int32)
+    assert da_kernel.route(dtype, hd, h // hkv) == "tc"
+    fn = da_ops.decode_attention
+    before = fn.launches, fn.tc_launches
+    got = fn(q, k, v, length)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (before[0] + 1, before[1] + 1)
+    want = da_ref.decode_attention_ref(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.cuda
 def test_decode_attention_calls_in_a_row_reset_the_merge(cuda):
     """Calls at B 32, then 5, then 32 again share the merge's counters on
     one stream; each must leave them at 0 for the next."""
@@ -525,6 +552,9 @@ K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
     (2, 1024, 512, 8, 1, 64, True),         # Sk < Sq, causal
     (1, 65, 200, 4, 2, 128, False),         # Sq != Sk, no mask
     (2, 1000, 63, 2, 2, 64, False),         # one ragged kv tile
+    (1, 1024, 1024, 32, 32, 112, True),     # zamba2-7b's admit (g 1, hd 112)
+    (2, 200, 333, 4, 2, 112, False),        # hd 112, Sq != Sk, ragged
+    (1, 65, 65, 8, 1, 112, True),           # hd 112, g 8, a 1-row tile
 ])
 def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
                                              hd, causal):
@@ -532,7 +562,7 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
     q = torch.randn((b, sq, h, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, sk, hkv, hd), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, sk, hkv, hd), generator=g, device=cuda).to(dtype)
-    tc = dtype != torch.float32 and hd in (64, 128)
+    tc = dtype != torch.float32 and hd in (64, 112, 128)
     assert fa_kernel.route(dtype, hd) == ("tc" if tc else "simt")
     fn = fa_ops.flash_attention
     before = fn.launches, fn.tc_launches, fn.simt_launches
@@ -554,6 +584,27 @@ def test_flash_attention_at_six_query_heads_a_kv_head(cuda, dtype, s):
     kv heads, g = 6, hd 128, causal): on the tensor cores."""
     b, h, hkv, hd = 1, 48, 8, 128
     g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((b, s, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
+    fn = fa_ops.flash_attention
+    before = fn.tc_launches
+    got = fn(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fn.tc_launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=K5_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [1024, 1000])
+def test_flash_attention_at_sixteen_query_heads_a_kv_head(cuda, dtype, s):
+    """A qwen3-moe-235b-a22b whole-prompt admit's attention (64 heads over
+    4 kv heads, g = 16, hd 128, causal): on the tensor cores."""
+    b, h, hkv, hd = 1, 64, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(s + 16)
     q = torch.randn((b, s, h, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).to(dtype)
@@ -859,6 +910,50 @@ def test_replica_on_the_card_matches_the_cpu(cuda, chunk):
     assert streams["cpu"] == streams[str(cuda)]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,chunk", [("zamba2-7b", None),
+                                        ("qwen3-moe-235b-a22b", 8),
+                                        ("qwen3-moe-235b-a22b", None)])
+def test_family_replica_on_the_card_matches_the_cpu(cuda, arch, chunk):
+    """zamba2-7b smoke() (Mamba-2 and the shared block: K5 prefill, K3
+    lockstep decode) and qwen3-moe smoke() (chunked or whole admits,
+    per-slot decode) in f32, TF32 off: admits and fused rounds on the
+    card give the CPU replica's tokens and owners."""
+    cfg = get_smoke_config(arch).with_overrides(dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (3, 20, 33)]
+    streams = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        mem = Membership(t_q=60.0, now=lambda: 0.0, device=dev)
+        for i in range(4):
+            mem.request_join(f"10.2.0.{i}", 9000)
+        rep = Replica(model, slots=8, max_len=64, prefill_chunk=chunk,
+                      device=dev)
+        rep.attach_params(p)
+        before = fa_ops.flash_attention.launches, da_ops.decode_attention.launches
+        got = {f"s{i}": [rep.admit(Request(f"s{i}", pr))]
+               for i, pr in enumerate(prompts)}
+        owners = []
+        for _ in range(6):
+            for sid, tok in rep.decode_round(
+                    route=mem.ring_state.device_bucket_table()).items():
+                got[sid].append(tok)
+            owners.append(dict(rep.routed_owners))
+        if dev != "cpu":
+            sites = -(-cfg.num_layers // cfg.shared_attn_every) \
+                if cfg.shared_attn_every else cfg.num_layers
+            whole = chunk is None
+            assert fa_ops.flash_attention.launches - before[0] \
+                == (3 * sites if whole else 0)
+            assert da_ops.decode_attention.launches - before[1] == 6 * sites
+        streams[str(dev)] = (got, owners)
+    assert streams["cpu"] == streams[str(cuda)]
+
+
 # ---------------------------------------------------------------------------
 # everywhere: no silent fallback to the CPU, no plain version off the CPU
 # ---------------------------------------------------------------------------
@@ -867,12 +962,18 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = Model(get_smoke_config("qwen2.5-3b"))
     ssm = Model(get_smoke_config("falcon-mamba-7b"))
+    hybrid = Model(get_smoke_config("zamba2-7b"))
+    moe = Model(get_smoke_config("qwen3-moe-235b-a22b"))
     for call in (lambda: model.init(),
                  lambda: model.init_cache(1, 8),
                  lambda: Replica(model, slots=2, max_len=8),
                  lambda: ssm.init(),
                  lambda: ssm.init_cache(1, 8),
                  lambda: Replica(ssm, slots=2, max_len=8),
+                 lambda: hybrid.init(),
+                 lambda: Replica(hybrid, slots=2, max_len=8),
+                 lambda: moe.init(),
+                 lambda: Replica(moe, slots=2, max_len=8),
                  lambda: RingState([1, 2, 3]).device_bucket_table(),
                  lambda: simulate_churn(ChurnConfig(n=64, s_avg=600.0)),
                  lambda: Membership().ring_state.device_table(),

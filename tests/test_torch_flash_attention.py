@@ -51,6 +51,8 @@ def _port(q, k, v, causal, dtype=torch.float32):
     (1, 256, 256, 8, 8, 64, True, "float32"),
     (2, 128, 256, 8, 2, 128, False, "float32"),
     (1, 128, 128, 4, 1, 128, True, "bfloat16"),
+    (1, 128, 128, 4, 4, 112, True, "float32"),     # zamba2's head dim, g 1
+    (1, 128, 256, 4, 2, 112, False, "bfloat16"),
 ])
 def test_plain_matches_pallas_interpret(b, sq, sk, h, hkv, hd, causal, dtype):
     q, k, v = _qkv(b, sq, sk, h, hkv, hd, seed=sq + sk + h)
@@ -98,20 +100,27 @@ def test_causal_mask_is_top_left_aligned():
 
 def _tc_recipe(q, k, v, causal, dtype, split=True):
     """K5's tensor-core route (``csrc/flash_attention_tc.cu``) emulated on
-    the CPU: q k^T of 16-bit values summed in f32 (their products are
-    exact in f32), an online softmax over kv tiles of 64 in f32, p split
-    into p_hi = dtype(p) and p_lo = dtype(p - p_hi) (or, with
-    ``split=False``, rounded once to dtype), p_hi v + p_lo v summed in f32,
-    l from the f32 p.  Returns the f32 output before its final rounding."""
-    q, k, v = (torch.from_numpy(np.asarray(a, np.float32)).to(dtype).float()
-               for a in (q, k, v))
-    b, sq, h, hd = q.shape
+    the CPU: q, k and v in the kernel's tiles (hd 112 runs on the hd-128
+    tiles, columns 112-127 filled with zeros by the TMA), q k^T of 16-bit
+    values summed in f32 (their products are exact in f32) and scaled by
+    1/sqrt(hd), an online softmax over kv tiles of 64 in f32, p split into
+    p_hi = dtype(p) and p_lo = dtype(p - p_hi) (or, with ``split=False``,
+    rounded once to dtype), p_hi v + p_lo v summed in f32, l from the f32
+    p.  The padded output columns must come out 0 (the kernel does not
+    store them).  Returns the f32 output of the true hd columns before its
+    final rounding."""
+    hd = q.shape[-1]
+    width = 128 if hd == 112 else hd
+    q, k, v = (torch.nn.functional.pad(
+        torch.from_numpy(np.asarray(a, np.float32)).to(dtype).float(),
+        (0, width - hd)) for a in (q, k, v))
+    b, sq, h, _ = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, hkv, h // hkv, hd)
+    qg = q.reshape(b, sq, hkv, h // hkv, width)
     q_pos = torch.arange(sq)
     m = torch.full((b, hkv, h // hkv, sq), -1e30)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, hkv, h // hkv, sq, hd))
+    acc = torch.zeros((b, hkv, h // hkv, sq, width))
     for j0 in range(0, sk, 64):
         kj, vj = k[:, j0:j0 + 64], v[:, j0:j0 + 64]
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj) / np.sqrt(hd)
@@ -130,14 +139,17 @@ def _tc_recipe(q, k, v, causal, dtype, split=True):
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    assert not out[..., hd:].any()
+    return out[..., :hd].permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
 # qwen2.5-3b smoke()'s heads (4 / 2, hd 16), and the tensor-core route's
-# head dims 64 and 128 at small Sq / Sk (multiples of the Pallas kernel's
+# head dims 64, 112 (zamba2's shared block, g 1, on zero-padded hd-128
+# tiles) and 128 at small Sq / Sk (multiples of the Pallas kernel's
 # 128-wide blocks)
 TC_CASES = [(1, 128, 128, 4, 2, 16, True), (2, 128, 256, 4, 2, 64, False),
-            (1, 256, 256, 4, 1, 128, True)]
+            (1, 256, 256, 4, 1, 128, True), (1, 256, 256, 4, 4, 112, True),
+            (2, 128, 256, 4, 2, 112, False)]
 
 
 @pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", TC_CASES)

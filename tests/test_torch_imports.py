@@ -56,7 +56,8 @@ def test_port_imports_neither_jax_nor_repro():
          str(REPO / "chip_profile.py"), str(REPO / "chip_kernel_steps.py")],
         env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[-1]) >= 25      # every module was walked
+    # every module was walked: 63 since the hybrid and MoE configs
+    assert int(res.stdout.split()[-1]) >= 63
 
 
 def test_chip_scripts_import_neither_jax_nor_repro_anywhere():

@@ -164,10 +164,16 @@ def test_load_rejects_a_foreign_tree(pair):
                         "cpu")
 
 
-def test_other_families_are_not_ported():
-    cfg = get_smoke_config("qwen2.5-3b").with_overrides(family="moe",
-                                                        moe_experts=4)
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("override,item", [
+    (dict(mla_kv_lora=32, mla_qk_nope_dim=16, mla_qk_rope_dim=8,
+          mla_v_head_dim=16), "item 2"),                  # deepseek-v2's MLA
+    (dict(family="encdec", encoder_layers=2), "item 2"),  # whisper
+    (dict(family="vlm", vision_tokens=8), "item 2"),      # internvl2
+    (dict(family="moe", moe_experts=4, moe_top_k=2, moe_d_ff=32,
+          moe_impl="ep"), "item 4")])                     # expert-parallel
+def test_other_families_are_not_ported(override, item):
+    cfg = get_smoke_config("qwen2.5-3b").with_overrides(**override)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         Model(cfg)
 
 

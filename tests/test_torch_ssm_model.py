@@ -240,8 +240,10 @@ def test_load_rejects_a_foreign_tree(pair):
 
 
 @pytest.mark.parametrize("override", [
-    dict(mamba_version=2), dict(shared_attn_every=2),
-    dict(family="hybrid"), dict(family="encdec")])
+    dict(family="encdec"), dict(family="vlm"),
+    dict(family="dense", num_heads=4, num_kv_heads=4, mla_kv_lora=32),
+    dict(family="moe", num_heads=4, num_kv_heads=4, moe_experts=4,
+         moe_top_k=2, moe_d_ff=32, moe_impl="ep")])
 def test_unported_variants_raise(override):
     cfg = get_smoke_config("falcon-mamba-7b").with_overrides(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
