@@ -73,8 +73,9 @@ layer's cache is cold:
             (only the kernel is gated); first the launch shape;
   k5        K5 (``ops.flash_attention``) on a 1024-token causal
             whole-prompt admit in bf16 at the heads of qwen2.5-3b (16 / 2,
-            hd 128), qwen3-moe-235b-a22b (64 / 4, hd 128) and zamba2-7b's
-            shared block (32 / 32, hd 112), by device time (torch.profiler)
+            hd 128), qwen3-moe-235b-a22b (64 / 4, hd 128), zamba2-7b's
+            shared block (32 / 32, hd 112) and deepseek-v2's MLA (128 /
+            128, q . k 192, v 128), by device time (torch.profiler)
             and by the CUDA-event time of back-to-back calls, beside SDPA's
             device time (its default backend) on the same inputs; a shape
             the tree's tensor-core route does not take is reported as
@@ -973,7 +974,8 @@ def k7(dev):
 
 
 K5_HEADS = {"qwen2.5-3b": (16, 2, 128), "qwen3-moe": (64, 4, 128),
-            "zamba2-7b": (32, 32, 112)}
+            "zamba2-7b": (32, 32, 112),
+            "deepseek-v2": (128, 128, 192, 128)}   # MLA: q . k 192, v 128
 K5_TOL = 2e-2                     # repro's bf16 tolerance (test_kernels.py)
 
 
@@ -983,15 +985,23 @@ def k5(dev, gen):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     s = 1024
-    for model, (h, hkv, hd) in K5_HEADS.items():
+    for model, heads in K5_HEADS.items():
+        h, hkv, hd = heads[:3]
+        dv = heads[3] if len(heads) > 3 else hd
         row = {"model": model, "B": 1, "S": s, "H": h, "Hkv": hkv, "hd": hd,
-               "dtype": "bfloat16", "causal": True}
-        if fk.route(torch.bfloat16, hd) != "tc":
+               "dv": dv, "dtype": "bfloat16", "causal": True}
+        try:    # a parent tree's route takes no v head dim
+            tc = (fk.route(torch.bfloat16, hd, dv) if dv != hd
+                  else fk.route(torch.bfloat16, hd)) == "tc"
+        except TypeError:
+            tc = False
+        if not tc:
             emit({"phase": "k5", **row, "skipped": "not on this tree's "
                   "tensor-core route"})
             continue
-        q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=dev,
-                               dtype=torch.bfloat16) for n in (h, hkv, hkv))
+        q, k, v = (torch.randn((1, s, n, d), generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+                   for n, d in ((h, hd), (hkv, hd), (hkv, dv)))
         fn = fa_ops.flash_attention
         before = fn.tc_launches
         got = fn(q, k, v, causal=True)

@@ -26,12 +26,21 @@ sites), one Replica (16 slots, 2048 positions): a whole-prompt admit of
 rounds of the full house of 16 (the shares of K3 and the SSD).  Then
 qwen3-moe-235b-a22b at full width and 8 layers, one Replica (16 slots,
 256-token prefill chunks) holding 16 sessions: 5 fused rounds of 16 (the
-shares of K3 and of the expert products).  The SSD (``ssm._ssd_chunks``,
-``ssm._ssd_step``) and the expert products (``layers._expert_ffn``) are
-wrapped in ``torch.profiler.record_function`` labels for those two
-models' windows only (the originals are restored after them), and their
-shares are the device time of the kernels launched inside those labels;
-a label with no device time fails the run.  Then one D1HT ``simulate_churn`` of the §VII churn cell
+shares of K3 and of the expert products).  Then deepseek-v2-236b at
+full width and 6 layers, one Replica (16 slots, 2048 positions, whole
+prompts) holding 15 sessions: a whole-prompt admit of 1024 tokens after a
+warm-up admit (the shares of K5, at q . k 192 / v 128, and of the expert
+products), then 5 fused rounds of the full house of 16 (the shares of the
+absorbed decode and of the expert products).  Then whisper-small at full
+size: a prefill of 8 streams of 1500 stub frames and 4-token prompts (K5's
+share), then 5 lockstep decode steps (K3's share), each after a warm-up.
+The SSD (``ssm._ssd_chunks``, ``ssm._ssd_step``), the expert products
+(``layers._expert_ffn``) and MLA's absorbed decode
+(``layers._mla_absorbed``) are wrapped in
+``torch.profiler.record_function`` labels for those models' windows only
+(the originals are restored after them), and their shares are the device
+time of the kernels launched inside those labels; a label with no device
+time fails the run.  Then one D1HT ``simulate_churn`` of the §VII churn cell
 (n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
 one warm-up run: its host-side event stream (also timed alone) and
 draws, K4 (the window reports its share) and the device metering.  Prints
@@ -266,6 +275,59 @@ def main() -> int:
                 lambda: rep.decode_round(route=route), 5, share_of="decode_",
                 labels=("moe_experts",))
     del rep, params, model
+    torch.cuda.empty_cache()
+
+    with _labelled(layers, "moe_experts", "_expert_ffn"), \
+            _labelled(layers, "mla_absorbed", "_mla_absorbed"):
+        cfg = get_config("deepseek-v2-236b").with_overrides(num_layers=6)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        rep = Replica(model, slots=16, max_len=2048, device=dev)
+        rep.attach_params(params)
+        for i, n in enumerate(rng.integers(128, 1025, size=14)):
+            rep.admit(Request(f"mla-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                       dtype=np.int32)))
+        late = iter(Request(f"late-{i}", rng.integers(0, cfg.vocab, 1024,
+                                                      dtype=np.int32))
+                    for i in range(2))
+        rep.admit(next(late))                # warm-up: a whole 1024-token admit
+        _window("deepseek_v2_admit_1024", lambda: rep.admit(next(late)), 1,
+                share_of="flash_", labels=("moe_experts",))
+        assert len(rep.sessions) == 16
+        for _ in range(2):                   # warm-up rounds
+            rep.decode_round(route=route)
+        _window("deepseek_v2_fused_decode_round_b16",
+                lambda: rep.decode_round(route=route), 5,
+                labels=("mla_absorbed", "moe_experts"))
+    del rep, params, model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-small")
+    model = Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, device=dev)
+    frames = torch.randn((8, cfg.audio_frames, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (8, 4), dtype=np.int32)).to(dev), "frames": frames}
+    state = {}
+
+    def prefill():
+        state["cache"] = model.init_cache(8, 448, device=dev)
+        state["logits"], state["cache"] = model.prefill(params, prompt,
+                                                        state["cache"])
+        state["index"] = 4
+
+    def step():
+        tok = torch.argmax(state["logits"], dim=-1).to(torch.int32)[:, None]
+        state["logits"], state["cache"] = model.decode_step(
+            params, state["cache"], tok, state["index"])
+        state["index"] += 1
+    prefill()                            # warm-up
+    _window("whisper_prefill_b8", prefill, 1, share_of="flash_")
+    step()                               # warm-up
+    _window("whisper_decode_step_b8", step, 5, share_of="decode_")
+    del state, params, model, frames
     torch.cuda.empty_cache()
     cell = ChurnConfig(n=10**6, s_avg=174 * 60, duration=1800.0,
                        warmup=300.0, seed=1)

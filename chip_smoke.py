@@ -151,9 +151,16 @@ N_KEYS = 1 << 20
 H, HKV, HD = 16, 2, 128            # qwen2.5-3b attention
 ZAMBA2_HEADS = (32, 32, 112)       # zamba2-7b's shared block (g 1, hd 112)
 QWEN3_MOE_HEADS = (64, 4, 128)     # qwen3-moe-235b-a22b (g 16)
+WHISPER_HEADS = (12, 12, 64)       # whisper-small (g 1, hd 64)
+INTERNVL_HEADS = (16, 8, 128)      # internvl2-2b (g 2, hd 128)
+DEEPSEEK_HEADS = (128, 128, 192, 128)   # deepseek-v2's MLA prefill: q . k
+                                        # over 128 nope + 64 rope, v 128
 # (B, S, dtype, (H, Hkv, hd)): bf16 and fp16 on the tensor-core route, f32
 # on the SIMT one; qwen2.5-3b's heads, then the decode bucket of 16 at the
-# heads of the hybrid and MoE serve paths
+# heads of the hybrid, MoE and VLM serve paths; whisper-small's cross and
+# self attention (a step of B 8 over 1500 frames, and over its 448-token
+# decoder cache) and internvl2-2b's 8 image rows (384 prompt positions and
+# 32 steps in a cache of 416)
 QWEN_HEADS = (H, HKV, HD)
 K3_SHAPES = [(1, 2048, "bfloat16", QWEN_HEADS),
              (8, 2048, "bfloat16", QWEN_HEADS),
@@ -163,7 +170,18 @@ K3_SHAPES = [(1, 2048, "bfloat16", QWEN_HEADS),
              (16, 2048, "float16", QWEN_HEADS),
              (16, 2048, "float32", QWEN_HEADS),
              (16, 2048, "bfloat16", ZAMBA2_HEADS),
-             (16, 2048, "bfloat16", QWEN3_MOE_HEADS)]
+             (16, 2048, "bfloat16", QWEN3_MOE_HEADS),
+             (16, 2048, "bfloat16", INTERNVL_HEADS),
+             (8, 1500, "bfloat16", WHISPER_HEADS),
+             (8, 448, "bfloat16", WHISPER_HEADS),
+             (8, 416, "bfloat16", INTERNVL_HEADS)]
+# the rows whose lengths the main path fixes, drawn in [lo, hi] (the rest
+# in [1, S]): whisper's cross attention (every row over all 1500 frames),
+# its self attention (4 prompt tokens and 64 steps: lengths 5 to 68) and
+# internvl2-2b's image rows (lengths 385 to 416)
+K3_LENGTHS = {(8, 1500, "bfloat16", WHISPER_HEADS): (1500, 1500),
+              (8, 448, "bfloat16", WHISPER_HEADS): (5, 68),
+              (8, 416, "bfloat16", INTERNVL_HEADS): (385, 416)}
 K3_MAIN = (16, 2048, "bfloat16", QWEN_HEADS)   # the largest decode bucket
 K3_TOL = {"bfloat16": BF16_ATOL, "float16": BF16_ATOL, "float32": 2e-5}
 K2_ROUND_KEYS = 32                 # the fused decode round's full house
@@ -184,10 +202,22 @@ K5_CASES = [(1, 1024, 1024, True, "bfloat16"), (1, 1000, 1000, True, "bfloat16")
             (1, 512, 1024, False, "bfloat16"), (1, 1024, 1024, True, "float16"),
             (1, 1024, 1024, True, "float32")]
 # then a 1024-token whole-prompt admit at zamba2-7b's shared block (the
-# tensor-core route on zero-filled hd-128 tiles) and at qwen3-moe's heads
+# tensor-core route on zero-filled hd-128 tiles), at qwen3-moe's heads and
+# at deepseek-v2's MLA (q . k 192, v 128; bf16, fp16 and f32); whisper-small's
+# encoder (B 8, 1500 frames, no mask), its decoder's causal self attention
+# over the 4 prompt tokens and its cross-attention prefill (4 prompt tokens
+# over the 1500 frames); internvl2-2b's image prefill (B 8, 256 vision
+# embeddings and 128 text tokens, causal)
 K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
                    ((1, 1024, 1024, True, "float16"), ZAMBA2_HEADS),
-                   ((1, 1024, 1024, True, "bfloat16"), QWEN3_MOE_HEADS)]
+                   ((1, 1024, 1024, True, "bfloat16"), QWEN3_MOE_HEADS),
+                   ((1, 1024, 1024, True, "bfloat16"), DEEPSEEK_HEADS),
+                   ((1, 1024, 1024, True, "float16"), DEEPSEEK_HEADS),
+                   ((1, 1024, 1024, True, "float32"), DEEPSEEK_HEADS),
+                   ((8, 1500, 1500, False, "bfloat16"), WHISPER_HEADS),
+                   ((8, 4, 4, True, "bfloat16"), WHISPER_HEADS),
+                   ((8, 4, 1500, False, "bfloat16"), WHISPER_HEADS),
+                   ((8, 384, 384, True, "bfloat16"), INTERNVL_HEADS)]
 # repro's (tests/test_kernels.py); fp16, finer than bf16, takes bf16's
 K5_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 2e-5}
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
@@ -213,9 +243,24 @@ DENSE_SERVE = [("internlm2-20b", None, 16, 16, 16, 4),
 # 13.5 GB of bf16 weights, 9.0 GB of cache a replica: whole-prompt admits,
 # lockstep rounds); qwen3-moe-235b-a22b at full width with depth cut 94 ->
 # 8 layers (its experts take 4.83 GB a layer, ~450 GB at full depth):
-# chunked admits, per-slot rounds, and 4 whole-prompt admits on K5 at g 16
+# chunked admits, per-slot rounds, and 4 whole-prompt admits on K5 at g 16;
+# deepseek-v2-236b at full width with depth cut 60 -> 6 layers (each layer's
+# 160 routed experts are 3.78 B parameters, 7.55 GB: 6 layers are 24.88 B
+# parameters, 46.3 GiB, where 60 would be 446 GiB): whole-prompt admits on
+# K5 at q . k 192 / v 128, per-slot absorbed decode with no kernel;
+# internvl2-2b at full size (1.89 B parameters): chunked text admits (its
+# ``prefill`` takes image embeddings, so a text prompt is never admitted
+# whole, as in repro), then 8 image prefills on K5 (``VLM_IMAGE``)
 FAMILY_SERVE = [("serve_hybrid", ("zamba2-7b", None, 16, 16, 16, 0)),
-                ("serve_moe", ("qwen3-moe-235b-a22b", 8, 16, 16, 16, 4))]
+                ("serve_moe", ("qwen3-moe-235b-a22b", 8, 16, 16, 16, 4)),
+                ("serve_mla", ("deepseek-v2-236b", 6, 16, 16, 16, 0)),
+                ("serve_vlm", ("internvl2-2b", None, 16, 16, 16, 0))]
+# the VLM's image prefills: B, prompt tokens after the 256 stub vision
+# embeddings, per-slot decode steps
+VLM_IMAGE = (8, 128, 32)
+# whisper-small at full size: B streams of 1500 stub frames, prompt tokens,
+# max_len (whisper's decoder context), lockstep greedy steps
+ENCDEC = (8, 4, 448, 64)
 # repro's DES <-> vectorized twin tests (tests/test_jax_sim.py): config,
 # bandwidth-ratio band, largest one-hop gap
 DES_TWIN = {
@@ -353,6 +398,11 @@ def sass_hgmma(lib_path):
     return {"hgmma_per_function": counts, "first_hgmma": first}
 
 
+def v_heads(heads):
+    """(H, Hkv, hd) or (H, Hkv, q . k hd, v hd) -> (H, Hkv, hd, v hd)."""
+    return tuple(heads) if len(heads) > 3 else tuple(heads) + heads[2:3]
+
+
 def bound(nbytes: float, nops: float, peak: float):
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, nops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -431,7 +481,7 @@ def main() -> int:
     emit({"phase": "device", **prov, "build_seconds": build.build_seconds,
           "ptxas": ptxas, "sass": sass})
     counts = sass and sass["hgmma_per_function"]
-    if sass is not None and (len(counts) != 4 or not all(counts.values())):
+    if sass is not None and (len(counts) != 6 or not all(counts.values())):
         raise AssertionError(f"tensor-core K5 without HGMMA: {sass}")
 
     # -- kernels -------------------------------------------------------------
@@ -558,7 +608,8 @@ def main() -> int:
                         dtype=dtype)
         v = torch.randn((copies, b, s, hkv3, hd3), generator=gen, device=dev,
                         dtype=dtype)
-        length = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+        lo, hi = K3_LENGTHS.get((b, s, dtype_name, (h3, hkv3, hd3)), (1, s))
+        length = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev,
                                dtype=torch.int32)
         fn3 = da_ops.decode_attention
         tc_before = fn3.tc_launches
@@ -608,7 +659,8 @@ def main() -> int:
                     == (b, s, dtype_name, heads))
 
     def heads_text(heads):
-        return f"H={heads[0]}, Hkv={heads[1]}, hd={heads[2]}"
+        dv = f", dv={heads[3]}" if len(heads) > 3 else ""
+        return f"H={heads[0]}, Hkv={heads[1]}, hd={heads[2]}{dv}"
 
     main3 = k3_row(*K3_MAIN)
     results["K3"] = {
@@ -619,43 +671,60 @@ def main() -> int:
                  "bf16, lengths in [1, S]",
         **{key: main3[key] for key in summary}}
     for key, heads, model_name in (("hd112", ZAMBA2_HEADS, "zamba2-7b"),
-                                   ("g16", QWEN3_MOE_HEADS, "qwen3-moe")):
+                                   ("g16", QWEN3_MOE_HEADS, "qwen3-moe"),
+                                   ("g2", INTERNVL_HEADS, "internvl2-2b")):
         row = k3_row(16, 2048, "bfloat16", heads)
         results["K3"][key] = {
             "shape": f"B=16, {heads_text(heads)}, S=2048, bf16, lengths in "
                      f"[1, S] ({model_name} decode bucket of 16)",
             **{k: row[k] for k in summary}}
+    for key, b, s, heads, site in (
+            ("whisper_cross", 8, 1500, WHISPER_HEADS,
+             "whisper-small's cross attention, a step"),
+            ("whisper_self", 8, 448, WHISPER_HEADS,
+             "whisper-small's decoder self attention, a step"),
+            ("internvl_image", 8, 416, INTERNVL_HEADS,
+             "internvl2-2b's image rows, a step")):
+        row = k3_row(b, s, "bfloat16", heads)
+        lo, hi = K3_LENGTHS[(b, s, "bfloat16", heads)]
+        results["K3"][key] = {
+            "shape": f"B={b}, {heads_text(heads)}, S={s}, bf16, lengths in "
+                     f"[{lo}, {hi}] ({site})",
+            **{k: row[k] for k in summary}}
     k5_rows = []
-    for (b, sq, sk, causal, dtype_name), (h5, hkv5, hd5) in \
+    for (b, sq, sk, causal, dtype_name), heads in \
             [(c, QWEN_HEADS) for c in K5_CASES] + K5_FAMILY_CASES:
+        h5, hkv5, hd5, dv5 = v_heads(heads)
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, sq, h5, hd5), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, sk, hkv5, hd5), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, sk, hkv5, hd5), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, hkv5, dv5), generator=gen, device=dev).to(dtype)
         tc_before = fa_ops.flash_attention.tc_launches
         got5 = fa_ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         route5 = "tc" if fa_ops.flash_attention.tc_launches > tc_before \
             else "simt"
         want5 = "simt" if dtype == torch.float32 else "tc"
-        if route5 != want5 or route5 != fa_kernel.route(dtype, hd5):
+        if route5 != want5 or route5 != fa_kernel.route(dtype, hd5, dv5):
             raise AssertionError(f"K5 {dtype_name} at {h5}/{hkv5} heads, hd "
-                                 f"{hd5} took the {route5} route")
+                                 f"{hd5} / {dv5} took the {route5} route")
         plain5 = flash_attention_ref(q, k, v, causal=causal)
         err5 = float((got5.float() - plain5.float()).abs().max())
         if not err5 <= K5_TOL[dtype_name]:
             raise AssertionError(f"K5 at {(b, sq, sk, causal, dtype_name)}, "
-                                 f"{h5}/{hkv5} heads, hd {hd5}: max err "
-                                 f"{err5}")
+                                 f"{h5}/{hkv5} heads, hd {hd5} / {dv5}: max "
+                                 f"err {err5}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-        b5, by5 = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
-                        4 * b * h5 * hd5 * pairs,
+        # q, k and v read once and the output written once; q . k and p . v
+        b5, by5 = bound(q.element_size() * (q.numel() + k.numel() + v.numel()
+                                            + got5.numel()),
+                        2 * b * h5 * (hd5 + dv5) * pairs,
                         FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k5_rows.append({
             "B": b, "Sq": sq, "Sk": sk, "H": h5, "Hkv": hkv5, "hd": hd5,
-            "causal": causal, "dtype": dtype_name, "kernel_route": route5,
+            "dv": dv5, "causal": causal, "dtype": dtype_name, "kernel_route": route5,
             "max_abs_err": err5, "tolerance": K5_TOL[dtype_name],
             **sdpa_in_turns(lambda i: fa_ops.flash_attention(q, k, v,
                                                              causal=causal),
@@ -673,16 +742,29 @@ def main() -> int:
         "shape": f"B=1, S={main5['Sq']}, {heads_text(QWEN_HEADS)}, bf16, "
                  "causal (qwen2.5-3b whole-prompt admit)",
         **{key: main5[key] for key in summary}}
-    for key, heads, site in (("hd112", ZAMBA2_HEADS,
-                              "zamba2-7b whole-prompt admit, a shared site"),
-                             ("g16", QWEN3_MOE_HEADS,
-                              "qwen3-moe whole-prompt admit, a layer")):
+    for key, heads, sq, sk, site in (
+            ("hd112", ZAMBA2_HEADS, 1024, 1024,
+             "zamba2-7b whole-prompt admit, a shared site"),
+            ("g16", QWEN3_MOE_HEADS, 1024, 1024,
+             "qwen3-moe whole-prompt admit, a layer"),
+            ("mla", DEEPSEEK_HEADS, 1024, 1024,
+             "deepseek-v2 whole-prompt admit, a layer"),
+            ("whisper_encoder", WHISPER_HEADS, 1500, 1500,
+             "whisper-small encoder, a layer"),
+            ("whisper_self_prefill", WHISPER_HEADS, 4, 4,
+             "whisper-small decoder self attention of a 4-token prefill"),
+            ("whisper_cross_prefill", WHISPER_HEADS, 4, 1500,
+             "whisper-small cross attention of a 4-token prefill"),
+            ("internvl_image_prefill", INTERNVL_HEADS, 384, 384,
+             "internvl2-2b image prefill, a layer")):
         row = next(r for r in k5_rows
-                   if (r["H"], r["Hkv"], r["hd"]) == heads
-                   and r["dtype"] == "bfloat16")
+                   if (r["H"], r["Hkv"], r["hd"], r["dv"]) == v_heads(heads)
+                   and r["dtype"] == "bfloat16"
+                   and (r["Sq"], r["Sk"]) == (sq, sk))
+        mask = "causal" if row["causal"] else "no mask"
         results["K5"][key] = {
-            "shape": f"B=1, S={row['Sq']}, {heads_text(heads)}, bf16, causal "
-                     f"({site})",
+            "shape": f"B={row['B']}, Sq={row['Sq']}, Sk={row['Sk']}, "
+                     f"{heads_text(heads)}, bf16, {mask} ({site})",
             **{k: row[k] for k in summary}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
@@ -819,11 +901,19 @@ def main() -> int:
             arch: counts[key] for arch, counts in dense.items()}
     results["K6"] = serve_ssm_phase(dev, rng)
     for phase, row in FAMILY_SERVE:
-        counts = serve_models_phase(dev, rng, phase, [row])[
-            get_config(row[0]).name]
-        for key in ("K1", "K2", "K3"):
+        counts = serve_models_phase(
+            dev, rng, phase, [row],
+            after=vlm_image_prefills if phase == "serve_vlm" else None)[
+                get_config(row[0]).name]
+        for key in ("K1", "K2"):
             results[key][f"launches_{phase}"] = counts[key]
-        results["K5"][f"launches_{phase}"] = counts["K5_serve"] + counts["K5"]
+        results["K3"][f"launches_{phase}"] = counts["K3"] \
+            + counts.get("K3_image", 0)
+        results["K5"][f"launches_{phase}"] = counts["K5_serve"] \
+            + counts["K5"] + counts.get("K5_image", 0)
+    counts = encdec_phase(dev, rng)
+    for key in ("K3", "K5"):
+        results[key]["launches_encdec"] = counts[key]
     results["K4"], churn = churn_phase(dev)
     latency_phase(dev, churn)
     results["K7"]["launches"] = quickstart_phase(dev)
@@ -880,22 +970,25 @@ def serve_rounds(model, params, mem, reqs, owner_of, dev, *, slots: int,
     return streams, prefill_s, round_ms, replica_rounds, buckets, cache_gib
 
 
-def serve_models_phase(dev, rng, phase: str, rows) -> dict:
+def serve_models_phase(dev, rng, phase: str, rows, after=None) -> dict:
     """Models on the path the qwen serve phase runs, one row of ``rows``
     each (``DENSE_SERVE``, ``FAMILY_SERVE``): each at full width from
     seeded random weights, four ``Membership`` nodes with one ``Replica``
     each, its requests routed (owners against a numpy bisect), ``rounds``
     cluster rounds fused then unfused, tokens equal; K2 one launch a fused
     replica round, K3 one an attention layer (the hybrid's: a shared site)
-    and replica round, all on the tensor cores.  A family with chunked
-    prefill (dense, MoE) admits in 256-token chunks, launches no K5 there,
+    and replica round, all on the tensor cores (MLA's absorbed decode: no
+    K3 launch at all).  A family with chunked
+    prefill (dense, MoE, VLM) admits in 256-token chunks, launches no K5 there,
     its chunked prefill probe's first token is the fused stream's, and then
     the first ``whole`` requests are admitted whole on K5 (one tensor-core
     launch an attention layer and admit); a family that admits whole
-    prompts (the hybrid) launches K5 once a shared site and admit, on the
-    tensor cores, and its whole prefill probe's first token is the fused
-    stream's.  Counters are zeroed just before each model's run and read
-    just after.  Returns each model's launches by kernel."""
+    prompts (the hybrid, MLA) launches K5 once an attention site and admit,
+    on the tensor cores, and its whole prefill probe's first token is the
+    fused stream's.  ``after(model, params, dev, rng)``, where given, runs
+    next with the weights still on the card and adds its launch counts.
+    Counters are zeroed just before each model's run and read just after.
+    Returns each model's launches by kernel."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -915,6 +1008,8 @@ def serve_models_phase(dev, rng, phase: str, rows) -> dict:
         chunked = model.supports_chunked_prefill
         attn_layers = num_shared_sites(cfg) if cfg.shared_attn_every \
             else cfg.num_layers
+        # MLA decodes absorbed over the latent cache: plain torch products
+        k3_layers = 0 if cfg.mla_kv_lora else attn_layers
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -967,7 +1062,7 @@ def serve_models_phase(dev, rng, phase: str, rows) -> dict:
         rr = fused[3] + unfused[3]
         k5_serve = 0 if chunked else attn_layers * 2 * n_req
         if k2_fused != fused[3] or launches["K2"] != fused[3] \
-                or launches["K3"] != attn_layers * rr \
+                or launches["K3"] != k3_layers * rr \
                 or launches["K3_tc"] != launches["K3"] or launches["K1"] < 1 \
                 or launches["K5_serve"] != k5_serve \
                 or launches["K5_serve_tc"] != k5_serve:
@@ -995,6 +1090,8 @@ def serve_models_phase(dev, rng, phase: str, rows) -> dict:
         del cache, logits, last
         launches["K5"] = whole_prompt_admits(
             model, params, reqs[:whole], fused[0], dev) if whole else 0
+        if after is not None:
+            launches.update(after(model, params, dev, rng))
         prompt_tokens = sum(len(r.prompt) for r in reqs)
         shape = {"d_model": cfg.d_model,
                  "heads": [cfg.num_heads, cfg.num_kv_heads],
@@ -1008,7 +1105,14 @@ def serve_models_phase(dev, rng, phase: str, rows) -> dict:
                          shared_sites=attn_layers)
         if cfg.moe_experts:
             shape.update(experts=cfg.moe_experts, top_k=cfg.moe_top_k,
-                         moe_d_ff=cfg.moe_d_ff)
+                         moe_d_ff=cfg.moe_d_ff,
+                         shared_experts=cfg.moe_shared_experts)
+        if cfg.mla_kv_lora:
+            shape.update(head_dim=None, kv_lora=cfg.mla_kv_lora,
+                         q_lora=cfg.mla_q_lora,
+                         qk_nope_dim=cfg.mla_qk_nope_dim,
+                         qk_rope_dim=cfg.mla_qk_rope_dim,
+                         v_head_dim=cfg.mla_v_head_dim)
         emit({"phase": phase, "model": cfg.name, "params": n_params,
               "layers": cfg.num_layers, "full_layers": full.num_layers,
               "cut": None if layers is None else
@@ -1033,6 +1137,156 @@ def serve_models_phase(dev, rng, phase: str, rows) -> dict:
         del params, model, mem, router
         torch.cuda.empty_cache()
     return out
+
+
+def vlm_image_prefills(model, params, dev, rng) -> dict:
+    """The VLM's image path (``VLM_IMAGE``): one prefill through
+    ``Model.prefill`` of B prompts, each its 256 stub vision embeddings
+    (N(0, 1) from the seed) and then 128 text tokens, then per-slot greedy
+    decode steps.  Gates: finite logits, K5 one tensor-core launch a layer
+    in the prefill, K3 one tensor-core launch a layer a step.  Returns
+    those launches."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg = model.cfg
+    b, n_txt, steps = VLM_IMAGE
+    n_img = cfg.vision_tokens
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    img = torch.randn((b, n_img, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n_txt),
+                                           dtype=np.int32)).to(dev)
+    cache = model.init_cache(b, n_img + n_txt + steps, device=dev)
+    fa, da = fa_ops.flash_attention, da_ops.decode_attention
+    fa.launches = fa.tc_launches = da.launches = da.tc_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens,
+                                           "image_embeds": img}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    idx = torch.full((b,), n_img + n_txt, dtype=torch.int32, device=dev)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    picked = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, cache, tok[:, None], idx)
+        finite &= bool(torch.isfinite(logits).all())
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        picked.append(tok)
+        idx += 1
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    toks = torch.stack(picked).cpu().numpy()
+    counts = {"K5_image": fa.launches, "K5_image_tc": fa.tc_launches,
+              "K3_image": da.launches, "K3_image_tc": da.tc_launches}
+    if not finite or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{cfg.name}: image prefill or decode logits "
+                             "not finite / tokens out of range")
+    if counts["K5_image"] != cfg.num_layers \
+            or counts["K5_image_tc"] != counts["K5_image"] \
+            or counts["K3_image"] != cfg.num_layers * steps \
+            or counts["K3_image_tc"] != counts["K3_image"]:
+        raise AssertionError(f"{cfg.name}: image path launch counts "
+                             f"{counts} off the main path")
+    emit({"phase": "serve_vlm_image", "model": cfg.name, "batch": b,
+          "vision_tokens": n_img, "prompt_tokens": n_txt,
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": b * (n_img + n_txt) / prefill_ms * 1e3,
+          "decode_steps": steps, "decode_ms_per_step": step_ms,
+          "launches": counts, "finite": True})
+    del cache, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_phase(dev, rng) -> dict:
+    """whisper-small at full size (``ENCDEC``): seeded random weights, B
+    streams of 1500 stub frames (N(0, 1) from the seed) and 4-token
+    prompts through ``Model.prefill``, then lockstep greedy steps.  Gates:
+    K5 36 launches a prefill (12 encoder layers without a mask, 12 causal
+    decoder self attentions, 12 cross attentions without a mask at Sq 4,
+    Sk 1500), K3 24 a step (12 self, 12 cross at length 1500), all on the
+    tensor cores; finite logits, tokens in range.  Returns K3's and K5's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Model
+    cfg = get_config("whisper-small")
+    b, n_txt, max_len, steps = ENCDEC
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    frames = torch.randn((b, cfg.audio_frames, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n_txt),
+                                           dtype=np.int32)).to(dev)
+    fa, da = fa_ops.flash_attention, da_ops.decode_attention
+    fa.launches = fa.tc_launches = da.launches = da.tc_launches = 0
+    cache = model.init_cache(b, max_len, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens,
+                                           "frames": frames}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(logits).all()) \
+        and bool(torch.isfinite(cache["xk"]).all())
+    k5 = (fa.launches, fa.tc_launches)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    picked, step_ms = [tok], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok[:, None],
+                                          n_txt + step)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= bool(torch.isfinite(logits).all())
+        picked.append(tok)
+    toks = torch.stack(picked).cpu().numpy()
+    k3 = (da.launches, da.tc_launches)
+    attn_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+    if not finite or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError("whisper-small: logits not finite / tokens out "
+                             "of range")
+    if k5 != (attn_prefill, attn_prefill) \
+            or k3 != (2 * cfg.num_layers * steps,) * 2:
+        raise AssertionError(f"whisper-small: K5 {k5}, K3 {k3} (launches, "
+                             "tensor-core launches) off the main path")
+    emit({"phase": "encdec", "model": cfg.name, "params": n_params,
+          "layers": [cfg.encoder_layers, cfg.num_layers],
+          "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "act": cfg.act, "init_s": init_s,
+          "batch": b, "audio_frames": cfg.audio_frames,
+          "prompt_tokens": n_txt, "max_len": max_len, "steps": steps,
+          "prefill_ms": prefill_ms,
+          "decode_ms_per_step": float(np.mean(step_ms[1:])),
+          "decode_ms_first_step": step_ms[0],
+          "launches": {"K5": k5[0], "K5_tc": k5[1], "K3": k3[0],
+                       "K3_tc": k3[1]},
+          "k5_launches_per_prefill": k5[0],
+          "k3_launches_per_step": k3[0] / steps,
+          "finite": True,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated_gib":
+              torch.cuda.max_memory_allocated() / 2**30})
+    del params, model, cache, logits, frames
+    torch.cuda.empty_cache()
+    return {"K3": k3[0], "K5": k5[0]}
 
 
 def whole_prompt_admits(model, params, reqs, chunked_streams, dev) -> int:

@@ -1,10 +1,12 @@
 // Flash attention (forward) on Hopper's tensor cores (sm_90a): K5's route
-// for bf16 and fp16 inputs at hd in {64, 112, 128}.  (f32, and hd in {16,
-// 32}, take the f32 SIMT kernel of flash_attention.cu.)
+// for bf16 and fp16 inputs at hd in {64, 112, 128}, and at a q.k head dim
+// of 192 with a v head dim of 128 (deepseek-v2's MLA prefill: 128 nope +
+// 64 rope columns, v 128).  (f32, and hd in {16, 32}, take the f32 SIMT
+// kernel of flash_attention.cu.)
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention_pallas
 // (body _flash_kernel) and computes what flash_attention.cu computes:
-// softmax(q k^T / sqrt(hd)) v per query head, GQA (query head h reads kv
+// softmax(q k^T / sqrt(dqk)) v per query head, GQA (query head h reads kv
 // head h / g), the top-left-aligned causal mask (qpos >= kpos) with masked
 // scores at -1e30, key positions past Sk at -inf, an online softmax in f32,
 // p kept at f32 precision for p . v, and acc / max(l, 1e-30) in q's dtype;
@@ -34,8 +36,12 @@
 //     tensor maps carry the true inner extent, 112, so the second box of a
 //     row reads columns 64-127 and the TMA fills 112-127 with zeros.  Those
 //     columns add 0 to q k^T and make O's columns 112-127 zero, which are
-//     never stored.  The price is 128/112 of the MMA work of an exact tile.  K and V go through rings of two stages each, one mbarrier a
-//     stage, so a K stage is refilled as soon as its q K^T is done and a V
+//     never stored.  The price is 128/112 of the MMA work of an exact tile.
+//     MLA's (192, 128) takes three boxes a q or K row and two a V row: the
+//     kernel is templated on the two widths (HDQK, HDV), q K^T runs
+//     HDQK / 16 k-steps, O is HDV wide, and the K and the V ring each
+//     count their own bytes on their mbarriers.  K and V go through rings
+//     of two stages each, one mbarrier a stage, so a K stage is refilled as soon as its q K^T is done and a V
 //     stage as soon as its p . v is: tiles j + 1 and j + 2 load while tile
 //     j computes.  q loads once.
 //   * inside the warpgroup the tensor cores and the softmax overlap, in
@@ -48,7 +54,8 @@
 //   * one warpgroup (128 threads) a block owns 64 query rows; each thread
 //     holds rows r and r + 8 of its warp's 16, and row max and row sum
 //     reduce over the four lanes that share a row.  A kv tile is 64 wide,
-//     so S and p take 32 + 32 registers, and O 64 at hd 128.
+//     so S and p take 32 + 32 registers, and O 64 at a v width of 128
+//     (hd 128, and MLA's 192 / 128 alike).
 //   * TMA fills rows past Sq or Sk with zeros; a zero K row would score 0,
 //     so key positions >= Sk are masked to -inf here, and rows >= Sq are
 //     computed and never stored (the output is written from registers).
@@ -56,9 +63,9 @@
 //   * schedule: as in flash_attention.cu, kv tiles wholly above the
 //     diagonal are skipped and the heaviest query tiles are launched first
 //     (grid.y is the reversed query-tile index).  81 KB of shared memory
-//     at hd 128 lets two blocks share an SM, so the 256 blocks of the admit
-//     shape all run in one wave, and one block's softmax also overlaps the
-//     other's MMAs.  The pairing (i, n - 1 - i) would even out the blocks'
+//     at hd 128 (105 KB at 192 / 128) lets two blocks share an SM, so the
+//     256 blocks of the qwen admit shape all run in one wave, and one
+//     block's softmax also overlaps the other's MMAs.  The pairing (i, n - 1 - i) would even out the blocks'
 //     work but halve their number: at the admit shape one block an SM,
 //     with no second block to overlap.  Heaviest-first keeps one query
 //     tile a block and any Sq; it does not even out the SMs' work.
@@ -86,11 +93,14 @@ constexpr int kBoxBytes = 64 * 128;  // one 64-row box
 constexpr float kNeg = -1e30f;       // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+template <int HDQK, int HDV>
 struct Layout {
-  static constexpr int kBoxes = HD / kBoxCols;
-  static constexpr int kTile = kBoxes * kBoxBytes;             // q, K or V tile
-  static constexpr int kSmem = kTile * (1 + 2 * kStages) + 1024;  // + alignment
+  static constexpr int kQkBoxes = HDQK / kBoxCols;
+  static constexpr int kVBoxes = HDV / kBoxCols;
+  static constexpr int kQkTile = kQkBoxes * kBoxBytes;         // a q or K tile
+  static constexpr int kVTile = kVBoxes * kBoxBytes;           // a V tile
+  static constexpr int kSmem =
+      kQkTile * (1 + kStages) + kVTile * kStages + 1024;       // + alignment
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -246,16 +256,18 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
 // each 8-column chunk c, at d[4 c + 2 i + e].  The A operand of k-step kk
 // (columns 16 kk .. 16 kk + 15) is {d[8kk..8kk+1], d[8kk+2..+3],
 // d[8kk+4..+5], d[8kk+6..+7]} packed in pairs: chunks 2 kk and 2 kk + 1.
-// HD is the tile's width; hd <= HD the tensors' head dim (columns hd .. HD
-// - 1 of every tile arrive as zeros and are not stored).
-template <typename T, int HD>
+// HDQK and HDV are the widths of the q / K and of the V tiles; hdv <= HDV
+// the tensors' v head dim (columns hdv .. HDV - 1 of every tile arrive as
+// zeros and are not stored; likewise q and K's columns past their head dim).
+template <typename T, int HDQK, int HDV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, T* __restrict__ out, int Sq,
-                    int Sk, int H, int Hkv, int hd, float scale, int causal) {
-  using L = Layout<HD>;
-  constexpr int NB = L::kBoxes;
+                    int Sk, int H, int Hkv, int hdv, float scale, int causal) {
+  using L = Layout<HDQK, HDV>;
+  constexpr int NQK = L::kQkBoxes;
+  constexpr int NB = L::kVBoxes;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
@@ -271,21 +283,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   // mbarriers: q, then K stages, then V stages
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
   uint8_t* const q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* const k_s = q_s + L::kTile;                 // kStages K tiles
-  uint8_t* const v_s = k_s + kStages * L::kTile;       // kStages V tiles
+  uint8_t* const k_s = q_s + L::kQkTile;               // kStages K tiles
+  uint8_t* const v_s = k_s + kStages * L::kQkTile;     // kStages V tiles
   uint64_t* const k_bar = bars + 1;
   uint64_t* const v_bar = bars + 1 + kStages;
 
   int n_kt = (Sk + kBN - 1) / kBN;
   if (causal) n_kt = min(n_kt, (min(q0 + kBM, Sq) - 1) / kBN + 1);
 
-  // tile j of K (or V) into its stage j % kStages (thread 0 only)
-  auto load = [&](const CUtensorMap* map, uint8_t* ring, uint64_t* ring_bar, int j) {
+  // tile j of K (or V) into its stage j % kStages (thread 0 only); each
+  // ring's mbarrier expects its own tile's bytes
+  auto load_k = [&](int j) {
     const int st = j % kStages;
-    mbar_expect_tx(&ring_bar[st], L::kTile);
+    mbar_expect_tx(&k_bar[st], L::kQkTile);
+#pragma unroll
+    for (int bx = 0; bx < NQK; ++bx)
+      tma_load(k_s + st * L::kQkTile + bx * kBoxBytes, &kmap, &k_bar[st], bx * kBoxCols, kh,
+               j * kBN, b);
+  };
+  auto load_v = [&](int j) {
+    const int st = j % kStages;
+    mbar_expect_tx(&v_bar[st], L::kVTile);
 #pragma unroll
     for (int bx = 0; bx < NB; ++bx)
-      tma_load(ring + st * L::kTile + bx * kBoxBytes, map, &ring_bar[st], bx * kBoxCols, kh,
+      tma_load(v_s + st * L::kVTile + bx * kBoxBytes, &vmap, &v_bar[st], bx * kBoxCols, kh,
                j * kBN, b);
   };
 
@@ -296,13 +317,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], L::kTile);
+    mbar_expect_tx(&bars[0], L::kQkTile);
 #pragma unroll
-    for (int bx = 0; bx < NB; ++bx)
+    for (int bx = 0; bx < NQK; ++bx)
       tma_load(q_s + bx * kBoxBytes, &qmap, &bars[0], bx * kBoxCols, h, q0, b);
     for (int j = 0; j < kStages && j < n_kt; ++j) {
-      load(&kmap, k_s, k_bar, j);
-      load(&vmap, v_s, v_bar, j);
+      load_k(j);
+      load_v(j);
     }
   }
 
@@ -322,16 +343,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   float alpha[2] = {1.f, 1.f};              // O's rescale for the tile in hand
   const uint32_t q_addr = smem_u32(q_s);
 
-  // S = q K^T of tile j, issued asynchronously: HD / 16 k-steps, 32 bytes
+  // S = q K^T of tile j, issued asynchronously: HDQK / 16 k-steps, 32 bytes
   // apart inside a 128-byte box row.  Past the last tile (j == n_kt) it
   // multiplies whatever the stage holds into an S nobody reads, so that
   // every step commits the same groups and the waits stay constants.
   auto issue_s = [&](int j) {
     if (j < n_kt) mbar_wait(&k_bar[j % kStages], (j / kStages) & 1);
-    const uint32_t k_addr = smem_u32(k_s + (j % kStages) * L::kTile);
+    const uint32_t k_addr = smem_u32(k_s + (j % kStages) * L::kQkTile);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDQK / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
       mma_ss<T>(s, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024),
                 kk > 0);
@@ -401,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // 64-column box of V at a time
   auto issue_pv = [&](int j) {
     mbar_wait(&v_bar[j % kStages], (j / kStages) & 1);
-    const uint32_t v_addr = smem_u32(v_s + (j % kStages) * L::kTile);
+    const uint32_t v_addr = smem_u32(v_s + (j % kStages) * L::kVTile);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -420,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   wg_wait<0>();
   fence_regs(s);
   __syncthreads();
-  if (tid == 0 && kStages < n_kt) load(&kmap, k_s, k_bar, kStages);
+  if (tid == 0 && kStages < n_kt) load_k(kStages);
   softmax(0);
   split_p();
   // Tile j: S(j + 1) and p . v of tile j run on the tensor cores while
@@ -442,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     wg_wait<1>();                 // S(j + 1) is done; its K stage is free
     fence_regs(s);
     __syncthreads();
-    if (tid == 0 && j + 1 + kStages < n_kt) load(&kmap, k_s, k_bar, j + 1 + kStages);
+    if (tid == 0 && j + 1 + kStages < n_kt) load_k(j + 1 + kStages);
     if (j + 1 < n_kt) softmax(j + 1);
     wg_wait<0>();                 // p . v of tile j is done; its V stage is free
 #pragma unroll
@@ -453,7 +474,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       fence_regs(p[1][kk]);
     }
     __syncthreads();
-    if (tid == 0 && j + kStages < n_kt) load(&vmap, v_s, v_bar, j + kStages);
+    if (tid == 0 && j + kStages < n_kt) load_v(j + kStages);
     split_p();
   }
 
@@ -462,19 +483,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const size_t row_stride = static_cast<size_t>(H) * hd;
+  const size_t row_stride = static_cast<size_t>(H) * hdv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qpos = q0 + r0 + 8 * i;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* orow = out + (static_cast<size_t>(b) * Sq + qpos) * row_stride +
-              static_cast<size_t>(h) * hd;
+              static_cast<size_t>(h) * hdv;
 #pragma unroll
     for (int bx = 0; bx < NB; ++bx)
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        if (bx * kBoxCols + 8 * c < hd)   // hd is a multiple of 8
+        if (bx * kBoxCols + 8 * c < hdv)   // hdv is a multiple of 8
           store2<T>(orow + bx * kBoxCols + 8 * c + cq, o[bx][4 * c + 2 * i] * inv,
                     o[bx][4 * c + 2 * i + 1] * inv);
   }
@@ -505,7 +526,7 @@ EncodeTiled encode_tiled() {
 
 // (B, S, heads, hd) contiguous 16-bit tensor -> a map of 64 x 64 boxes over
 // (hd, heads, S, B), 128-byte swizzle, zeros past every edge (columns past
-// hd too: the map's inner extent is hd, the boxes tile HD).  The strides
+// hd too: the map's inner extent is hd, the boxes tile the kernel's width).  The strides
 // (2 hd bytes and up) are multiples of 16 for hd % 8 == 0.
 int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int hd, int heads,
              int seq, int batch) {
@@ -525,54 +546,62 @@ int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int hd
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int HD>
+template <typename T, int HDQK, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
-           int Hkv, int hd, float scale, int causal, cudaStream_t stream) {
+           int Hkv, int hd, int hdv, float scale, int causal, cudaStream_t stream) {
   const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, type, q, hd, H, Sq, B);
   if (!err) err = make_map(&km, type, k, hd, Hkv, Sk, B);
-  if (!err) err = make_map(&vm, type, v, hd, Hkv, Sk, B);
+  if (!err) err = make_map(&vm, type, v, hdv, Hkv, Sk, B);
   if (err) return err;
-  const int smem = Layout<HD>::kSmem;
+  const int smem = Layout<HDQK, HDV>::kSmem;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tc_kernel<T, HDQK, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_tc_kernel<T, HD><<<grid, kThreads, smem, stream>>>(qm, km, vm, static_cast<T*>(out), Sq,
-                                                           Sk, H, Hkv, hd, scale, causal);
+  flash_tc_kernel<T, HDQK, HDV><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<T*>(out), Sq, Sk, H, Hkv, hdv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-              int H, int Hkv, int hd, float scale, int causal, cudaStream_t stream) {
+              int H, int Hkv, int hd, int hdv, float scale, int causal, cudaStream_t stream) {
+  if (hd == 192 && hdv == 128)  // MLA: q . k over 128 nope + 64 rope columns
+    return launch<T, 192, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, stream);
+  if (hdv != hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, scale, causal, stream);
+    case 64:
+      return launch<T, 64, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, stream);
     case 112:  // on the hd-128 tiles, columns 112-127 zero-filled by the TMA
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, scale, causal, stream);
+    case 128:
+      return launch<T, 128, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal,
+                                 stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 1 = bfloat16, 2 = float16 (q, k, v and out alike); q/out:
-// (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), contiguous, 16-byte aligned;
-// hd in {64, 112, 128}.  The arguments are flash_attention_launch's.
+// dtype: 1 = bfloat16, 2 = float16 (q, k, v and out alike); q: (B, Sq, H,
+// hd), k: (B, Sk, Hkv, hd), v: (B, Sk, Hkv, hdv), out: (B, Sq, H, hdv),
+// contiguous, 16-byte aligned; (hd, hdv) in {(64, 64), (112, 112), (128,
+// 128), (192, 128)}.  The arguments are flash_attention_launch's.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         int B, int Sq, int Sk, int H, int Hkv, int hd,
+                                         int B, int Sq, int Sk, int H, int Hkv, int hd, int hdv,
                                          int causal, int dtype, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv || (Sq + kBM - 1) / kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 1:
-      return launch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, scale, causal, st);
+      return launch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal,
+                                      st);
     case 2:
-      return launch_hd<__half>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, scale, causal, st);
+      return launch_hd<__half>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -48,10 +48,11 @@ SIGNATURES = {
     # inv_fill, delta, phase_key (a uint32: c_int would wrap >= 2^31), stream
     "edra_tree_launch": [_P] * 10 + [_L, _I, _I] + [_F] * 6
     + [ctypes.c_uint32, _P],
-    # q, k, v, out, B, Sq, Sk, H, Hkv, hd, causal, dtype, scale, stream
-    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    # q, k, v, out, B, Sq, Sk, H, Hkv, hd (q and k), hdv (v and out),
+    # causal, dtype, scale, stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _P],
     # the same arguments (the tensor-core route)
-    "flash_attention_tc_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "flash_attention_tc_launch": [_P] * 4 + [_I] * 9 + [_F, _P],
     # x, dt, B, C, A, D, h0 (or 0), y, h_last, Bb, L, Din, N, dtype, stream
     "ssm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }

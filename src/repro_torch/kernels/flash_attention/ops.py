@@ -13,13 +13,14 @@ from .ref import flash_attention_ref
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool) -> torch.Tensor:
-    """q: (B,Sq,H,hd); k/v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd) (K5).  Causal
-    masks top-left aligned (query i sees keys 0..i), as the TPU kernel."""
+    """q: (B,Sq,H,dqk); k: (B,Sk,Hkv,dqk); v: (B,Sk,Hkv,dv) -> (B,Sq,H,dv)
+    (K5; dv == dqk but for MLA's prefill).  Causal masks top-left aligned
+    (query i sees keys 0..i), as the TPU kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     out = flash_attention_cuda(q, k, v, causal=causal)
     flash_attention.launches += 1
-    if route(q.dtype, q.shape[-1]) == "tc":
+    if route(q.dtype, q.shape[-1], v.shape[-1]) == "tc":
         flash_attention.tc_launches += 1
     else:
         flash_attention.simt_launches += 1

@@ -3,10 +3,12 @@
 ``params_from_jax`` takes ``jax.device_get(repro Model(cfg).init(key))``
 as a tree of numpy arrays and returns the port's parameters.  The port
 keeps ``repro``'s names, its ``(in, out)`` matrices and its stacked
-``layers`` axis (``repro/models/transformer.py`` for the dense and MoE
-families, ``repro/models/hybrid.py`` for the SSM and hybrid families, the
-shared block under ``shared``), so the mapping is the identity on names
-and shapes; this is the one place that checks it.  ``Model.init`` draws
+``layers`` axis (``repro/models/transformer.py`` for the dense, MoE, MLA
+and VLM families, ``repro/models/hybrid.py`` for the SSM and hybrid
+families, the shared block under ``shared``, and
+``repro/models/encdec.py``'s stacked ``encoder`` and ``decoder``), so the
+mapping is the identity on names and shapes; this is the one place that
+checks it.  ``Model.init`` draws
 random weights on the device instead.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from . import hybrid, transformer
+from . import encdec, hybrid, transformer
 from . import layers as L
 
 __all__ = ["params_from_jax"]
@@ -52,5 +54,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
     if cfg.family in ("ssm", "hybrid"):
         return walk(tree, hybrid.param_shapes(cfg), {}, "")
+    if cfg.family == "encdec":
+        return walk(tree, encdec.param_shapes(cfg), {}, "")
     return walk(tree, transformer.param_shapes(cfg),
                 transformer.param_dtypes(cfg), "")

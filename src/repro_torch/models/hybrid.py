@@ -82,27 +82,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for k, t in S.mamba_params(cfg, generator, device).items():
             mamba[k][i] = t
 
-    def draw(shape, std):
-        return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device) * std).to(dtype)
-
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    def leaf(name, shape, std=None):
+        return L.init_leaf(name, shape, False, std, generator=generator,
+                           dtype=dtype, device=device)
 
     out = {
-        "embed": {k: draw(s, 0.02) for k, s in sorted(shapes["embed"].items())},
-        "layers": {"ln": ones(shapes["layers"]["ln"]), "mamba": mamba},
-        "ln_f": ones(shapes["ln_f"]),
+        "embed": {k: leaf(k, s, 0.02)
+                  for k, s in sorted(shapes["embed"].items())},
+        "layers": {"ln": leaf("ln", shapes["layers"]["ln"]), "mamba": mamba},
+        "ln_f": leaf("ln_f", shapes["ln_f"]),
     }
     if "shared" in shapes:
         std = cfg.d_model ** -0.5
-        sh = shapes["shared"]
-        out["shared"] = {
-            "ln1": ones(sh["ln1"]), "ln2": ones(sh["ln2"]),
-            "attn": {k: draw(s, std) if len(s) == 2 else
-                     torch.zeros(s, dtype=dtype, device=device)
-                     for k, s in sorted(sh["attn"].items())},
-            "mlp": {k: draw(s, std) for k, s in sorted(sh["mlp"].items())}}
+        out["shared"] = {k: leaf(k, v) if k.startswith("ln") else
+                         {name: leaf(name, s, std)
+                          for name, s in sorted(v.items())}
+                         for k, v in shapes["shared"].items()}
     return out
 
 

@@ -1,6 +1,6 @@
 """Model building blocks of the port: ``repro.models.layers`` on torch
-tensors (GQA attention, the MLPs, the MoE block, embedding and head;
-MLA comes with its own slice).
+tensors (GQA attention, the encoder-decoder's cross attention, MLA
+attention, the MLPs, the MoE block, embedding and head).
 
 Dtypes follow ``repro``: ``rms_norm`` and ``rope`` compute in f32 and
 cast back; attention scores are f32 from the working-dtype operands; the
@@ -11,7 +11,10 @@ Whole-prompt prefill attention goes through the K5 wrapper and decode
 attention through the K3 wrapper (CUDA kernels on the card, their plain
 versions on the CPU); a continuation prefill chunk attends at a query
 offset that K5 does not take, so it stays plain torch, as ``repro``
-leaves it to XLA.
+leaves it to XLA.  MLA's prefill runs K5 with a q . k head dim of
+qk_nope + qk_rope and a v head dim of its own; its absorbed decode over
+the latent cache is plain torch products, as in ``repro`` (no TPU kernel
+computes it).
 """
 from __future__ import annotations
 
@@ -33,6 +36,26 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def dt(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def init_leaf(name: str, shape: Tuple[int, ...], stacked: bool, std: float,
+              *, generator: torch.Generator, dtype: torch.dtype,
+              device) -> torch.Tensor:
+    """One leaf of a random init with ``repro``'s conventions: unit norms
+    (``ln*``), zero biases (one dimension past the stacked layer one), and
+    N(0, std^2) matrices drawn in f32 from ``generator``, a layer at a
+    time where ``stacked``."""
+    if name.startswith("ln"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    if len(shape) == (2 if stacked else 1):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for sl in (range(shape[0]) if stacked else [slice(None)]):
+        # scaled in place and cast by the copy: one f32 temporary of a
+        # layer's leaf at a time, which sets the init's peak
+        out[sl] = torch.randn(out[sl].shape, generator=generator,
+                              dtype=torch.float32, device=device).mul_(std)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -98,9 +121,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_index=None, chunk: bool = False
-              ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+              cache_index=None, chunk: bool = False, causal: bool = True,
+              use_rope: bool = True) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """GQA attention with QKV bias.  Returns (out, cache).
+
+    ``causal=False, use_rope=False`` is the encoder-decoder's encoder
+    (no cache: K5 without a mask).
 
     ``cache`` is a (k, v) pair of (B,S,Hkv,hd) tensors, written IN PLACE
     (``repro`` returns fresh arrays; the port saves the copy).
@@ -116,11 +142,14 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     v = v.reshape(b, s, hkv, hd)
     if cache is None:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=causal)
     else:
         k_cache, v_cache = cache
         if isinstance(cache_index, torch.Tensor) and cache_index.dim():
@@ -156,10 +185,31 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             out = torch.einsum("bhqk,bkhd->bqhd", p, vc).to(q.dtype)
         else:
             # prefill from position 0: attend over the fresh segment
-            out = flash_attention(q, k, v, causal=True)
+            out = flash_attention(q, k, v, causal=causal)
         cache = (k_cache, v_cache)
     out = out.reshape(b, s, h * hd) @ params["wo"]
     return out, cache
+
+
+def cross_attention(params: Params, x: torch.Tensor, k_enc: torch.Tensor,
+                    v_enc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's attention over precomputed encoder K/V (B,T,Hkv,hd),
+    every position unmasked: what ``repro``'s jnp ``decode_attention``
+    without lengths computes (``repro/models/encdec.py:135``; no bias,
+    no rope).  A decode step (s == 1) runs K3 with every row's length
+    T; a prefill (s > 1) runs K5 without a mask, Sq = s over Sk = T
+    (``repro`` runs an unmasked einsum there, and rounds p to v's dtype
+    before p . v, where K5 keeps it in f32)."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    if s == 1:
+        length = torch.full((b,), k_enc.shape[1], dtype=torch.int32,
+                            device=x.device)
+        out = decode_attention(q, k_enc, v_enc, length)
+    else:
+        out = flash_attention(q, k_enc, v_enc, causal=False)
+    return out.reshape(b, s, h * hd) @ params["wo"]
 
 
 def attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -173,6 +223,110 @@ def attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes.update({"bq": (h * hd,), "bk": (hkv * hd,),
                        "bv": (hkv * hd,)})
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v2): compressed KV, shared rope key
+# ---------------------------------------------------------------------------
+
+def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """``repro``'s ``mla_params`` tree: the kv compression (with the
+    shared rope key), its decompression to k_nope and v, the output, and
+    q through a low-rank pair where ``mla_q_lora`` > 0, else ``wq``."""
+    d, h = cfg.d_model, cfg.num_heads
+    qk_n, qk_r = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    v_hd, r_kv, r_q = cfg.mla_v_head_dim, cfg.mla_kv_lora, cfg.mla_q_lora
+    shapes = {"w_dkv": (d, r_kv + qk_r), "w_ukv": (r_kv, h * (qk_n + v_hd)),
+              "wo": (h * v_hd, d)}
+    if r_q:
+        shapes.update({"w_dq": (d, r_q), "w_uq": (r_q, h * (qk_n + qk_r))})
+    else:
+        shapes["wq"] = (d, h * (qk_n + qk_r))
+    return shapes
+
+
+def _mla_absorbed(w_ukv: torch.Tensor, q_nope: torch.Tensor,
+                  q_rope: torch.Tensor, c_cache: torch.Tensor,
+                  r_cache: torch.Tensor, lim, cfg: ModelConfig) -> torch.Tensor:
+    """MLA's absorbed decode step over the latent cache: q_nope (B,1,H,
+    qk_nope) and q_rope (B,1,H,qk_rope) against c (B,T,r_kv) and r
+    (B,T,qk_rope), positions >= ``lim`` (an int, or (B,1,1,1)) masked;
+    returns (B,1,H,v_head_dim)."""
+    h, r_kv = cfg.num_heads, cfg.mla_kv_lora
+    qk_n, qk_r = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    w_ukv = w_ukv.reshape(r_kv, h, qk_n + cfg.mla_v_head_dim)
+    w_uk, w_uv = w_ukv[..., :qk_n], w_ukv[..., qk_n:]
+    q_c = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)       # (B,1,H,r_kv)
+    s_c = torch.einsum("bshr,bTr->bhsT", q_c.float(), c_cache.float())
+    s_r = torch.einsum("bshr,bTr->bhsT", q_rope.float(), r_cache.float())
+    scores = (s_c + s_r) * (1.0 / math.sqrt(qk_n + qk_r))
+    pos = torch.arange(c_cache.shape[1], device=c_cache.device)
+    scores = torch.where(pos[None, None, None, :] < lim, scores, NEG)
+    p = torch.softmax(scores, dim=-1).to(c_cache.dtype)
+    out_c = torch.einsum("bhsT,bTr->bshr", p, c_cache)       # (B,1,H,r_kv)
+    return torch.einsum("bshr,rhv->bshv", out_c, w_uv)
+
+
+def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  positions: torch.Tensor,
+                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  cache_index=None) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """``repro``'s ``mla_attention``.  Returns (out, cache).
+
+    ``cache`` is the latent pair (c (B,S,r_kv), r (B,S,qk_rope)), written
+    IN PLACE at ``cache_index`` (an int, or a (B,) tensor of per-slot
+    positions with s == 1).  A prefill expands K/V for the segment and
+    runs K5 with q . k over qk_nope + qk_rope columns (the rope key
+    shared by every head) and v at v_head_dim.  A decode step (s == 1
+    with a cache) is absorbed: q_nope . w_uk gives q in the latent space,
+    f32 scores against ``c`` and ``r`` (the operands upcast exactly, where
+    XLA takes ``preferred_element_type=f32``) masked with -1e30 past each
+    row's length, p in the cache's dtype, and (p . c) . w_uv; no kernel
+    runs there, as no TPU kernel does in ``repro``."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    qk_n, qk_r = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    v_hd, r_kv = cfg.mla_v_head_dim, cfg.mla_kv_lora
+    if "w_dq" in params:
+        q = (x @ params["w_dq"]) @ params["w_uq"]
+    else:
+        q = x @ params["wq"]
+    q = q.reshape(b, s, h, qk_n + qk_r)
+    q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv = x @ params["w_dkv"]                          # (B, S, r_kv + qk_r)
+    c_kv, k_rope = ckv[..., :r_kv], ckv[..., r_kv:]
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim()
+    if cache is not None:
+        c_cache, r_cache = cache
+        if per_slot:
+            rows = torch.arange(b, device=x.device)
+            idx = cache_index.to(torch.int64)
+            c_cache[rows, idx] = c_kv[:, 0].to(c_cache.dtype)
+            r_cache[rows, idx] = k_rope[:, 0].to(r_cache.dtype)
+        else:
+            idx = int(cache_index)
+            if idx + s > c_cache.shape[1]:
+                raise ValueError(f"segment [{idx}, {idx + s}) exceeds the "
+                                 f"cache length {c_cache.shape[1]}")
+            c_cache[:, idx:idx + s] = c_kv.to(c_cache.dtype)
+            r_cache[:, idx:idx + s] = k_rope.to(r_cache.dtype)
+
+    if cache is not None and s == 1:
+        lim = (idx + 1)[:, None, None, None] if per_slot else idx + 1
+        out = _mla_absorbed(params["w_ukv"], q_nope, q_rope, c_cache, r_cache,
+                            lim, cfg)
+    else:
+        kv = (c_kv @ params["w_ukv"]).reshape(b, s, h, qk_n + v_hd)
+        k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, qk_r)],
+                      dim=-1)
+        out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                              causal=True)
+    out = out.reshape(b, s, h * v_hd) @ params["wo"]
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,19 @@
 """Decoder-only transformer of the port (``repro.models.transformer``):
-the dense family, and the MoE family, whose layers take the MoE block
-(``layers.moe_block``) in place of the MLP.
+the dense family; the MoE family, whose layers take the MoE block
+(``layers.moe_block``) in place of the MLP; MLA (deepseek-v2), whose
+layers take ``layers.mla_attention``; and the VLM (internvl2), the dense
+model with stub image embeddings prepended to the prompt.
 
 Parameters keep ``repro``'s tree: names, ``(in, out)`` matrices, and the
 layer weights stacked on a leading ``layers`` axis; the forward pass
 walks that axis in a Python loop.  The KV cache is ``{"k", "v"}`` of
-(layers, batch, max_len, kv_heads, head_dim), written in place.
+(layers, batch, max_len, kv_heads, head_dim), and for MLA the latent
+``{"c": (layers, batch, max_len, kv_lora), "r": (..., qk_rope)}``,
+written in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -31,7 +36,9 @@ def param_shapes(cfg: ModelConfig) -> Params:
     emb = {"embedding": (cfg.vocab, d)}
     if not cfg.tie_embeddings:
         emb["lm_head"] = (d, cfg.vocab)
-    stack = {"ln1": (d,), "ln2": (d,), "attn": L.attention_shapes(cfg)}
+    stack = {"ln1": (d,), "ln2": (d,),
+             "attn": L.mla_shapes(cfg) if cfg.mla_kv_lora
+             else L.attention_shapes(cfg)}
     if cfg.moe_experts:
         stack["moe"] = L.moe_shapes(cfg)
     else:
@@ -68,21 +75,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     drawn one layer at a time to bound the f32 temporary."""
     dtype = L.dt(cfg)
     shapes = param_shapes(cfg)
-
-    def draw(shape, std, stacked):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for sl in (range(shape[0]) if stacked else [slice(None)]):
-            out[sl] = (torch.randn(out[sl].shape, generator=generator,
-                                   dtype=torch.float32, device=device)
-                       * std).to(dtype)
-        return out
-
-    def leaf(name, shape, stacked, std):
-        if name.startswith("ln"):
-            return torch.ones(shape, dtype=dtype, device=device)
-        if len(shape) == (2 if stacked else 1):      # biases
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return draw(shape, std, stacked)
+    leaf = functools.partial(L.init_leaf, generator=generator, dtype=dtype,
+                             device=device)
 
     def quantized(shape, std):
         """int8 experts (n, e, in, out) and their (n, e) scales."""
@@ -123,6 +117,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Tuple]:
+    if cfg.mla_kv_lora:
+        lead = (cfg.num_layers, batch, max_len)
+        return {"c": lead + (cfg.mla_kv_lora,),
+                "r": lead + (cfg.mla_qk_rope_dim,)}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": shape, "v": shape}
@@ -146,8 +144,12 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[Tuple],
                 cache_index, chunk: bool) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, _ = L.attention(lp["attn"], h, cfg, positions=positions, cache=cache,
-                       cache_index=cache_index, chunk=chunk)
+    if cfg.mla_kv_lora:
+        a, _ = L.mla_attention(lp["attn"], h, cfg, positions=positions,
+                               cache=cache, cache_index=cache_index)
+    else:
+        a, _ = L.attention(lp["attn"], h, cfg, positions=positions,
+                           cache=cache, cache_index=cache_index, chunk=chunk)
     x = x + a
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe_experts:
@@ -156,8 +158,9 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor, cache: Dict,
-                       cfg: ModelConfig, cache_index, *,
-                       chunk: bool = False) -> Tuple[torch.Tensor, Dict]:
+                       cfg: ModelConfig, cache_index, *, chunk: bool = False,
+                       image_embeds: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
     """Prefill (S>1) or decode (S==1): returns (last-position logits, cache).
 
     ``cache_index`` is an int (prefill / lockstep decode) or a (B,)
@@ -167,8 +170,12 @@ def forward_with_cache(params: Params, tokens: torch.Tensor, cache: Dict,
     possibly > 0): attention spans the whole cache under the absolute
     causal mask, and ALL-position logits (B, S, V) come back so the
     caller can pick the true last prompt position of a right-padded
-    segment.  The cache is updated in place and returned."""
+    segment.  ``image_embeds`` (B, vision_tokens, d), the VLM's stub
+    vision output, is prepended to the embedded tokens, as ``repro``
+    does.  The cache is updated in place and returned."""
     x = L.embed(params["embed"], tokens, cfg)
+    if image_embeds is not None:
+        x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     steps = torch.arange(s, device=x.device)
     if isinstance(cache_index, torch.Tensor) and cache_index.dim():
@@ -176,9 +183,10 @@ def forward_with_cache(params: Params, tokens: torch.Tensor, cache: Dict,
     else:
         cache_index = int(cache_index)
         positions = (cache_index + steps).expand(b, s)
+    pair = ("c", "r") if cfg.mla_kv_lora else ("k", "v")
     for i in range(cfg.num_layers):
         x = _layer_body(cfg, _layer(params, i), x, positions=positions,
-                        cache=(cache["k"][i], cache["v"][i]),
+                        cache=(cache[pair[0]][i], cache[pair[1]][i]),
                         cache_index=cache_index, chunk=chunk)
     if chunk:
         h = L.rms_norm(x, params["ln_f"], cfg.norm_eps)

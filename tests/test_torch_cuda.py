@@ -555,6 +555,8 @@ K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
     (1, 1024, 1024, 32, 32, 112, True),     # zamba2-7b's admit (g 1, hd 112)
     (2, 200, 333, 4, 2, 112, False),        # hd 112, Sq != Sk, ragged
     (1, 65, 65, 8, 1, 112, True),           # hd 112, g 8, a 1-row tile
+    (2, 1500, 1500, 12, 12, 64, False),     # whisper-small's encoder
+    (2, 4, 1500, 12, 12, 64, False),        # its cross prefill (Sq 4)
 ])
 def test_flash_attention_kernel_equals_plain(cuda, dtype, b, sq, sk, h, hkv,
                                              hd, causal):
@@ -619,10 +621,46 @@ def test_flash_attention_at_sixteen_query_heads_a_kv_head(cuda, dtype, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal", [
+    (1, 1024, 1024, 128, 128, True),        # deepseek-v2's admit
+    (1, 1000, 1000, 16, 16, True),          # ragged
+    (2, 77, 200, 4, 4, False),              # Sq != Sk, no mask
+    (1, 65, 65, 8, 2, True),                # g 4, a 1-row second tile
+    (2, 1024, 300, 4, 4, True),             # Sk < Sq, causal
+])
+def test_flash_attention_at_mla_head_dims(cuda, dtype, b, sq, sk, h, hkv,
+                                          causal):
+    """MLA's prefill: q and k at a q . k head dim of 192 (128 nope + 64
+    rope), v at 128; bf16 and fp16 on the tensor cores, f32 on the SIMT
+    kernel, each within its tolerance of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + 192)
+    q = torch.randn((b, sq, h, 192), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, sk, hkv, 192), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, sk, hkv, 128), generator=g, device=cuda).to(dtype)
+    tc = dtype != torch.float32
+    assert fa_kernel.route(dtype, 192, 128) == ("tc" if tc else "simt")
+    fn = fa_ops.flash_attention
+    before = fn.launches, fn.tc_launches, fn.simt_launches
+    got = fn(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches, fn.simt_launches) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (b, sq, h, 128)
+    torch.testing.assert_close(got.float(), want.float(), atol=K5_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa_ops.flash_attention(q, q, q, causal=True)
+    q = torch.randn((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):     # v narrower
+        fa_ops.flash_attention(q, q, q[..., :32].contiguous(), causal=True)
     q = torch.randn((1, 8, 3, 16), device=cuda)
     with pytest.raises(ValueError, match="mismatched"):
         fa_ops.flash_attention(q, q[:, :, :2].contiguous(),

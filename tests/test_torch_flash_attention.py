@@ -4,8 +4,9 @@ shapes of ``tests/test_kernels.py``'s sweep (f32 within 2e-5, bf16
 within 2e-2), and the exact-softmax oracle ``attention_ref`` at ragged
 lengths the TPU kernel does not take.  The tensor-core route's recipe
 (q k^T of 16-bit values, p split into two 16-bit parts for p . v),
-emulated in torch, against the Pallas kernel and against f32 p.  Then the
-path K5 serves: a qwen2.5-3b smoke() whole-prompt admit
+emulated in torch, against the Pallas kernel and against f32 p.  v
+narrower than q and k (MLA's prefill) against repro's jnp flash path.
+Then the path K5 serves: a qwen2.5-3b smoke() whole-prompt admit
 (``prefill_chunk=None``) on the port's Replica gives repro's tokens."""
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models import Model as JModel
+from repro.models import layers as JL
 from repro.serve import Replica as JReplica
 from repro.serve import Request as JRequest
 from repro_torch.configs import get_smoke_config
@@ -86,6 +88,30 @@ def test_plain_matches_exact_softmax_at_ragged_lengths(b, sq, sk, h, hkv, hd,
                                     jnp.asarray(v), causal=causal))
     np.testing.assert_allclose(_port(q, k, v, causal), want, atol=2e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dqk,dv,causal", [
+    (1, 200, 200, 4, 4, 24, 16, True),      # deepseek-v2 smoke()'s prefill
+    (2, 70, 200, 4, 2, 24, 16, False),
+    (1, 130, 130, 2, 2, 192, 128, True),    # the full config's widths
+    (1, 64, 300, 2, 1, 192, 128, False),
+])
+def test_plain_at_a_narrower_v_matches_repros_flash(b, sq, sk, h, hkv, dqk,
+                                                    dv, causal):
+    """MLA's prefill attention: q and k at qk_nope + qk_rope columns, v at
+    v_head_dim.  K5's plain version against repro's jnp flash attention
+    (``repro.models.layers.flash_attention``, which takes a v head dim of
+    its own; the Pallas kernel and ``attention_ref`` assume v's is q's),
+    in f32 within 2e-5, scaled by 1/sqrt(dqk)."""
+    q, k, _ = _qkv(b, sq, sk, h, hkv, dqk, seed=sq + dv)
+    v = np.random.default_rng(sk + dv).standard_normal(
+        (b, sk, hkv, dv)).astype(np.float32)
+    want = np.asarray(JL.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), causal=causal,
+                                         chunk=128))
+    got = _port(q, k, v, causal)
+    assert got.shape == (b, sq, h, dv) == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
 
 
 def test_causal_mask_is_top_left_aligned():
