@@ -8,10 +8,14 @@ modules on the port's core, pure host Python, so a run reproduces
 churn plane (``core.sim``) at n <= 10^3.  ``latency`` is the
 closed-form Figs 5-6 oracle and ``latency_sim`` its measured twin, whose
 route timing runs the port's ring-lookup kernels and whose stale-table
-retry fraction comes from the vectorized churn plane.
+retry fraction comes from the vectorized churn plane.  ``data`` is the
+replicated KV-block store and the prefix cache the serve cluster hands
+sessions off through.
 """
 from .calot_node import CalotPeer
 from .d1ht_node import D1HTPeer
+from .data import (BlockMeta, BlockStore, Bf16Words, PrefixCache,
+                   pack_array, unpack_array)
 from .des import GeoDelay, LanDelay, SimNet, WanDelay
 from .experiment import ChurnConfig, ChurnResult, run_churn
 from .latency import LatencyPoint, latency_sweep
@@ -20,6 +24,8 @@ from .latency_sim import (ServiceProfile, latency_experiment, latency_point,
 
 __all__ = [
     "CalotPeer", "D1HTPeer", "GeoDelay", "LanDelay", "SimNet", "WanDelay",
+    "BlockMeta", "BlockStore", "Bf16Words", "PrefixCache", "pack_array",
+    "unpack_array",
     "ChurnConfig", "ChurnResult", "run_churn",
     "LatencyPoint", "latency_sweep",
     "ServiceProfile", "latency_experiment", "latency_point",

@@ -14,6 +14,12 @@ from typing import Optional
 
 import torch
 
+from .build import KernelLaunchError
+
+# what a serve path must never absorb into a degrade-to-recompute: a
+# kernel's failed launch, or an error the CUDA runtime reported
+DEVICE_FAULTS = (KernelLaunchError, torch.AcceleratorError)
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the current CUDA device (raises without one)."""
@@ -83,6 +89,12 @@ def provenance(device=None) -> dict:
         "nvidia_smi": nvidia_smi_line() if on_card else None,
         "kernels": "cuda" if on_card else "plain",
     }
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's work (a no-op on the host)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def strict_fp32() -> None:

@@ -6,8 +6,9 @@ At first use, every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
 keyed by a hash of the sources and flags, then loaded with ``ctypes``.
 The sources have a plain C interface and include no PyTorch header, so a
 build takes seconds.  Each C entry point launches on the stream it is
-given and returns ``cudaGetLastError()``; ``launch`` raises when that is
-not 0.  A failed build raises: nothing falls back to the plain versions.
+given and returns ``cudaGetLastError()``; ``launch`` raises
+``KernelLaunchError`` when that is not 0.  A failed build raises:
+nothing falls back to the plain versions.
 """
 from __future__ import annotations
 
@@ -138,10 +139,14 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a non-zero CUDA error code."""
+
+
 def launch(name: str, *args) -> None:
     """Call one C entry point; raise on a non-zero CUDA error code."""
     lib = library()
     code = getattr(lib, name)(*args)
     if code:
         msg = lib.repro_cuda_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+        raise KernelLaunchError(f"{name}: CUDA error {code}: {msg}")

@@ -10,6 +10,8 @@ and the encoder-decoder (``encdec``, whisper).
     logits, cache = m.prefill(params, {"tokens": t}, cache)
     # encdec: {"tokens", "frames"}; vlm: {"tokens", "image_embeds"}
     logits, cache = m.decode_step(params, cache, tokens, index)
+    block = m.export_kv_block(cache, row, off, chunk)   # host slab
+    cache = m.cache_with_blocks(max_len, [block, ...], device=...)
 
 ``device=None`` means the CUDA card and raises without one; pass
 ``device="cpu"`` to run on the host with the kernels' plain versions.
@@ -120,6 +122,44 @@ class Model:
                 f"family {self.cfg.family} has no chunked prefill")
         return transformer.forward_with_cache(params, tokens, cache, self.cfg,
                                               index, chunk=True)
+
+    # -- KV-cache blocks (the data plane, DESIGN.md §11) ---------------------
+    @property
+    def supports_kv_blocks(self) -> bool:
+        """The KV cache exports and imports as fixed-shape position-range
+        blocks: the families with a chunked prefill (dense, MoE, VLM
+        text); MLA's latent cache and the SSM, hybrid and
+        encoder-decoder states are not position-sliceable."""
+        return self.supports_chunked_prefill
+
+    def kv_block_shape(self, chunk: int) -> Tuple[int, ...]:
+        """(2, chunk, layers, kv_heads, head_dim): k and v stacked."""
+        self._require_kv_blocks()
+        return transformer.kv_block_shape(self.cfg, chunk)
+
+    def export_kv_block(self, cache, row: int, off: int, chunk: int):
+        """Host slab of cache positions [off, off+chunk) of batch row
+        ``row`` (one device->host copy; bfloat16 as ``Bf16Words``)."""
+        self._require_kv_blocks()
+        return transformer.export_kv_block(self.cfg, cache, row, off, chunk)
+
+    def import_kv_block(self, cache, row: int, off: int, block):
+        """Write an exported slab back into a cache, in place and bit
+        for bit."""
+        self._require_kv_blocks()
+        return transformer.import_kv_block(self.cfg, cache, row, off, block)
+
+    def cache_with_blocks(self, max_len: int, blocks, *, device=None):
+        """Fresh one-row cache pre-filled with a contiguous slab run from
+        position 0, moved to the device in one copy."""
+        self._require_kv_blocks()
+        return transformer.cache_with_blocks(self.cfg, max_len, blocks,
+                                             _on(device))
+
+    def _require_kv_blocks(self) -> None:
+        if not self.supports_kv_blocks:
+            raise NotImplementedError(
+                f"family {self.cfg.family} has no KV block export path")
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor,
                     index) -> Tuple[torch.Tensor, Any]:

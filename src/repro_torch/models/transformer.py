@@ -9,7 +9,10 @@ layer weights stacked on a leading ``layers`` axis; the forward pass
 walks that axis in a Python loop.  The KV cache is ``{"k", "v"}`` of
 (layers, batch, max_len, kv_heads, head_dim), and for MLA the latent
 ``{"c": (layers, batch, max_len, kv_lora), "r": (..., qk_rope)}``,
-written in place.
+written in place.  KV blocks (the data plane's wire format) are host
+slabs of (2, chunk, layers, kv_heads, head_dim), k and v stacked; a
+bfloat16 slab leaves the card as its raw words (``dht.data.Bf16Words``)
+and comes back bit for bit.
 """
 from __future__ import annotations
 
@@ -17,9 +20,11 @@ import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..dht.data import Bf16Words
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -130,6 +135,98 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Dict[str, torch.Tensor]:
     return {name: torch.zeros(shape, dtype=L.dt(cfg), device=device)
             for name, shape in cache_shapes(cfg, batch, max_len).items()}
+
+
+def kv_block_shape(cfg: ModelConfig, chunk: int) -> Tuple[int, ...]:
+    """Fixed block shape for ``chunk`` cache positions: (2, chunk,
+    layers, kv_heads, head_dim) — k and v stacked on the leading axis so
+    one DHT block carries a whole chunk's cache state."""
+    return (2, chunk, cfg.num_layers, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """One device->host copy of a contiguous tensor; bfloat16 leaves as
+    its raw words."""
+    if t.dtype == torch.bfloat16:
+        return Bf16Words.of(t.view(torch.int16).cpu().numpy())
+    return t.cpu().numpy()
+
+
+def _check_blocks(cfg: ModelConfig, cache: Dict, blocks) -> None:
+    """A block must have the wire shape and the cache's dtype: a torn or
+    foreign slab is refused before anything is written."""
+    bf16 = cache["k"].dtype == torch.bfloat16
+    want = np.dtype(np.uint16) if bf16 \
+        else torch.empty(0, dtype=cache["k"].dtype).numpy().dtype
+    for b in blocks:
+        if b.ndim != 5 or b.shape != kv_block_shape(cfg, b.shape[1]) \
+                or b.dtype != want or isinstance(b, Bf16Words) != bf16:
+            raise ValueError(f"KV block of shape {b.shape} and type "
+                             f"{type(b).__name__}[{b.dtype}] does not fit a "
+                             f"{cache['k'].dtype} cache of {cfg.name}")
+
+
+def _device_run(blocks, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """Concatenate a slab run on the host and move it in one copy:
+    (2, positions, layers, kv_heads, head_dim) on ``device``."""
+    run = np.ascontiguousarray(np.concatenate([np.asarray(b) for b in blocks],
+                                              axis=1))
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(run.view(np.int16)).to(device).view(dtype)
+    return torch.from_numpy(run).to(device)
+
+
+def export_kv_block(cfg: ModelConfig, cache: Dict, row: int, off: int,
+                    chunk: int) -> np.ndarray:
+    """Cache positions [off, off+chunk) of one batch row as a host
+    (2, chunk, layers, kv_heads, head_dim) slab: stacked on the device,
+    then one device->host copy."""
+    sl = slice(off, off + chunk)
+    slab = torch.stack([cache["k"][:, row, sl], cache["v"][:, row, sl]])
+    return _host(slab.transpose(1, 2).contiguous())
+
+
+def export_kv_block_shards(cfg: ModelConfig, cache: Dict, row: int, off: int,
+                           chunk: int, shards: int) -> list:
+    """Per-shard slabs of one chunk (shard s carries kv_heads [s*H/shards,
+    (s+1)*H/shards)).  One card holds every head, so only ``shards=1``
+    exists until the tensor-parallel slice (ROADMAP queue 1, item 3)."""
+    if shards != 1:
+        raise NotImplementedError("KV shards across a tensor-parallel group "
+                                  "are not ported yet: ROADMAP queue 1, "
+                                  "item 3")
+    return [export_kv_block(cfg, cache, row, off, chunk)]
+
+
+def cache_with_blocks(cfg: ModelConfig, max_len: int, blocks,
+                      device) -> Dict[str, torch.Tensor]:
+    """Fresh single-row cache with a contiguous run of exported slabs
+    already written at positions [0, len(blocks)*chunk): the run is
+    assembled on the host and moved in one host->device copy (a write per
+    block would cost a copy per block), the rest of the cache is zero."""
+    cache = init_cache(cfg, 1, max_len, device)
+    if blocks:
+        _check_blocks(cfg, cache, blocks)
+        run = _device_run(blocks, cache["k"].dtype, cache["k"].device)
+        covered = run.shape[1]
+        cache["k"][:, 0, :covered] = run[0].transpose(0, 1)
+        cache["v"][:, 0, :covered] = run[1].transpose(0, 1)
+    return cache
+
+
+def import_kv_block(cfg: ModelConfig, cache: Dict, row: int, off: int,
+                    block) -> Dict[str, torch.Tensor]:
+    """Write an exported slab back into cache positions [off, off+chunk)
+    of one batch row, in place.  Bit-faithful: the imported KV is
+    byte-identical to what the exporting replica computed."""
+    _check_blocks(cfg, cache, [block])
+    run = _device_run([block], cache["k"].dtype, cache["k"].device)
+    sl = slice(off, off + block.shape[1])
+    cache["k"][:, row, sl] = run[0].transpose(0, 1)
+    cache["v"][:, row, sl] = run[1].transpose(0, 1)
+    return cache
 
 
 # ---------------------------------------------------------------------------

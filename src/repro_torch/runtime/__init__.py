@@ -1,4 +1,6 @@
+from .failover import ReplicaSupervisor
 from .membership import Membership, NodeInfo
-from .placement import PlacementPolicy, RingSuccessor
+from .placement import LatencyAware, PlacementPolicy, RingSuccessor, Topology
 
-__all__ = ["Membership", "NodeInfo", "PlacementPolicy", "RingSuccessor"]
+__all__ = ["LatencyAware", "Membership", "NodeInfo", "PlacementPolicy",
+           "ReplicaSupervisor", "RingSuccessor", "Topology"]

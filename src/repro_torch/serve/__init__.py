@@ -1,3 +1,5 @@
+from .cluster import RequestTrace, ServeCluster, SessionRecord
 from .server import Replica, Request, SessionRouter, session_key
 
-__all__ = ["Replica", "Request", "SessionRouter", "session_key"]
+__all__ = ["Replica", "Request", "RequestTrace", "ServeCluster",
+           "SessionRecord", "SessionRouter", "session_key"]

@@ -14,12 +14,19 @@ the bucketed ring lookup (K2) on the batch's session keys next to the
 gather and decode, and reads the owners back with the tokens in one
 host transfer.
 
+A replica of a family with KV blocks (``Model.supports_kv_blocks``)
+exports a session's chunks as host slabs, admits a session from such
+slabs (``admit_from_blocks``: only the tail is re-prefilled), and with
+a ``PrefixCache`` imports a prompt's cached prefix chunks instead of
+computing them; ``repro_torch.serve.cluster.ServeCluster`` drives it.
+
 Differences from ``repro`` that the port makes on purpose: the KV slab
 is updated in place (no functional copy), out-of-range gather rows are
 clamped and zeroed explicitly, and only the real rows are scattered back
-(torch's index ops raise where JAX fills or drops).  Tensor-parallel
-groups, the prefix cache and KV-block admission come with the
-``ServeCluster`` slice.
+(torch's index ops raise where JAX fills or drops).  A failed overlapped
+prefill is recorded in ``failed_prefills`` unless the failure is the
+device's (``backend.DEVICE_FAULTS``), which propagates.  Tensor-parallel
+groups come with ROADMAP queue 1, item 3.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ import torch
 
 from ..core.ring import hash_id
 from ..core.ringstate import RingState
-from ..kernels.backend import resolve_device, strict_fp32
+from ..kernels.backend import (DEVICE_FAULTS, resolve_device, strict_fp32,
+                               synchronize)
 from ..kernels.ring_lookup.ops import ring_lookup_bucketed
 from ..models import Model
 from ..runtime import Membership
@@ -111,17 +119,25 @@ class Replica:
     compacts the active slots into a power-of-two bucket and steps only
     those rows, each at its own cache position.  ``device=None`` means
     the CUDA card (raises without one); pass ``device="cpu"`` to run on
-    the host.
+    the host.  ``generation`` is the membership generation the replica
+    was created at; ``prefix_cache`` a ``dht.data.PrefixCache`` that
+    chunked prefills consult and feed (families with KV blocks only).
     """
 
     def __init__(self, model: Model, *, slots: int, max_len: int,
-                 prefill_chunk: Optional[int] = None, device=None):
+                 generation: int = 0, prefill_chunk: Optional[int] = None,
+                 prefix_cache=None, device=None):
         self.model = model
         self.slots = slots
         self.max_len = max_len
+        self.generation = generation
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             strict_fp32()
+        self.prefix_cache = prefix_cache if model.supports_kv_blocks else None
+        # wall time the last admit_from_blocks spent importing blocks
+        # (the cluster splits handoff transfer from re-prefill with it)
+        self.import_us = 0.0
         self.cache = model.init_cache(slots, max_len, device=self.device)
         self.lengths = np.zeros((slots,), np.int32)
         self.tokens = np.zeros((slots, 1), np.int32)
@@ -158,6 +174,17 @@ class Replica:
 
     def _fresh_cache(self):
         return self.model.init_cache(1, self.max_len, device=self.device)
+
+    def _cache_with_blocks(self, blocks):
+        """A one-row cache holding ``blocks`` from position 0; each block
+        must cover exactly one prefill chunk (a shorter run would leave
+        positions the tail prefill never writes)."""
+        if any(b.ndim < 2 or b.shape[1] != self.prefill_chunk
+               for b in blocks):
+            raise ValueError("a KV block does not cover one prefill chunk "
+                             f"of {self.prefill_chunk} positions")
+        return self.model.cache_with_blocks(self.max_len, blocks,
+                                            device=self.device)
 
     def _release(self, slot: int) -> None:
         self._free.append(slot)
@@ -210,22 +237,96 @@ class Replica:
         c = self.prefill_chunk
         return torch.from_numpy(buf[off:off + c]).to(self.device)[None, :]
 
-    def _run_chunks(self, prompt: np.ndarray, one) -> Tuple[int, object]:
-        """Drive the fixed-shape segment program over a prompt; returns
-        (first generated token, filled one-row cache)."""
+    def _run_chunks(self, prompt: np.ndarray, one, *,
+                    start: int = 0) -> Tuple[int, object]:
+        """Drive the fixed-shape segment program over a prompt from cache
+        position ``start`` (0 = the whole prompt; > 0 continues over a
+        cache whose first ``start`` positions were imported from KV
+        blocks); returns (first generated token, filled one-row cache).
+
+        With a prefix cache and ``start == 0``, the longest cached
+        token-prefix is imported instead of computed, and every freshly
+        computed full chunk is offered back."""
         c = self.prefill_chunk
         s = len(prompt)
+        if start == 0 and self.prefix_cache is not None:
+            covered, blocks = self.prefix_cache.match(prompt)
+            if covered:
+                one = self._cache_with_blocks(blocks)
+                start = covered
         padded = (s + c - 1) // c * c
         buf = np.zeros(padded, np.int32)
         buf[:s] = prompt
         logits = None
-        for off in range(0, padded, c):
+        for off in range(start, padded, c):
             logits, one = self.model.prefill_chunk(
                 self.params, self._segment(buf, off), one, off)
+            if self.prefix_cache is not None and off + c <= s:
+                self.prefix_cache.insert(
+                    prompt, off, self.model.export_kv_block(one, 0, off, c))
         # the prompt's last real token sits at column (s-1) - (padded-c)
         # of the final (right-padded) segment's all-position logits
         tok = int(torch.argmax(logits[0, (s - 1) - (padded - c)]))
         return tok, one
+
+    def admit_from_blocks(self, req: Request, blocks) -> int:
+        """Admit from imported KV blocks: cache positions
+        [0, len(blocks)*chunk) come off the wire, only the rest of the
+        prompt is re-prefilled.  The blocks are bit-identical to what
+        this replica would have computed, so the token — and every decode
+        after it — matches a from-scratch admit.  No blocks: ``admit``.
+        A failed import or tail prefill leaks no slot.  ``import_us`` is
+        the import's wall time between two device syncs."""
+        if not blocks:
+            return self.admit(req)
+        s = len(req.prompt)
+        c = self.prefill_chunk
+        if not self._chunkable(s):
+            raise ValueError("prompt not chunkable on this replica")
+        covered = len(blocks) * c
+        if covered > max(((s - 1) // c) * c, 0):
+            raise ValueError("blocks cover the final segment: the tail "
+                             "must be recomputed to produce logits")
+        if s >= self.max_len:
+            raise ValueError(f"prompt of {s} tokens >= max_len {self.max_len}")
+        fresh = False
+        if req.session_id in self.sessions:
+            slot = self.sessions[req.session_id]
+        elif self._free:
+            slot = self._free.pop()
+            self.sessions[req.session_id] = slot
+            fresh = True
+        else:
+            raise RuntimeError("replica full")
+        try:
+            synchronize(self.device)
+            t0 = time.perf_counter_ns()
+            one = self._cache_with_blocks(blocks)
+            synchronize(self.device)
+            self.import_us = (time.perf_counter_ns() - t0) / 1e3
+            tok, one = self._run_chunks(req.prompt, one, start=covered)
+            self._write_slot(one, slot)
+            self._commit_slot(req.session_id, slot, s, tok)
+        except BaseException:
+            if fresh:
+                del self.sessions[req.session_id]
+                self._release(slot)
+            raise
+        return tok
+
+    def export_block(self, session_id: str, j: int) -> np.ndarray:
+        """Chunk ``j`` of the session's live cache as a host slab
+        (positions [j*chunk, (j+1)*chunk); the caller guarantees the
+        session's length has crossed that boundary)."""
+        c = self.prefill_chunk
+        return self.model.export_kv_block(self.cache, self.sessions[session_id],
+                                          j * c, c)
+
+    def export_block_shards(self, session_id: str, j: int) -> List[np.ndarray]:
+        """Chunk ``j`` as per-shard slabs: one card holds every kv head,
+        so a one-element list (tensor-parallel shards: ROADMAP queue 1,
+        item 3)."""
+        return [self.export_block(session_id, j)]
 
     def _commit_slot(self, session_id: str, slot: int, s: int,
                      tok: int) -> None:
@@ -259,10 +360,19 @@ class Replica:
         padded = (s + c - 1) // c * c
         buf = np.zeros(padded, np.int32)
         buf[:s] = np.asarray(req.prompt, np.int32)
-        self._pending[req.session_id] = {
-            "slot": slot, "cache": self._fresh_cache(),
-            "prompt": buf, "s": s, "off": 0, "logits": None,
-        }
+        st = {"slot": slot, "cache": None, "prompt": buf, "s": s, "off": 0,
+              "logits": None}
+        if self.prefix_cache is not None:
+            # overlapped admits hit the prefix cache too (inserts stay on
+            # the synchronous path only)
+            covered, blocks = self.prefix_cache.match(
+                np.asarray(req.prompt, np.int32))
+            if covered:
+                st["cache"] = self._cache_with_blocks(blocks)
+                st["off"] = covered
+        if st["cache"] is None:
+            st["cache"] = self._fresh_cache()
+        self._pending[req.session_id] = st
         return None
 
     def advance_prefills(self, chunks: int = 1) -> Dict[str, int]:
@@ -270,7 +380,8 @@ class Replica:
         segments; returns {sid: first token} for the ones that completed.
         A failed chunk releases the reserved slot, drops the pending
         state and records the sid in ``failed_prefills`` (siblings'
-        completions are kept)."""
+        completions are kept); a device fault is re-raised after the
+        release."""
         done: Dict[str, int] = {}
         for sid in list(self._pending):
             st = self._pending[sid]
@@ -294,9 +405,11 @@ class Replica:
                 self._commit_slot(sid, slot, s, tok)
                 del self._pending[sid]
                 done[sid] = tok
-            except Exception:
+            except Exception as exc:
                 del self._pending[sid]
                 self._release(st["slot"])
+                if isinstance(exc, DEVICE_FAULTS):
+                    raise
                 self.failed_prefills.append(sid)
         return done
 

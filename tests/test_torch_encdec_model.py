@@ -173,6 +173,26 @@ def test_the_family_decodes_in_lockstep_and_admits_whole(pair):
                         m.init_cache(1, MAX_LEN, device="cpu"), 0)
 
 
+def test_prefill_refuses_frames_the_cache_does_not_hold(pair):
+    """Deliberate difference: the port writes the cross K/V into the
+    cache in place, so a frame count other than the cache's encoder
+    positions raises before anything is written (repro replaces the
+    leaves and takes any T)."""
+    _, _, m, p, cfg = pair
+    frames, tokens = _inputs(cfg, 2, 4, seed=6)
+    cache = m.init_cache(2, MAX_LEN, device="cpu")
+    for name in cache:
+        cache[name].normal_(generator=torch.Generator().manual_seed(6))
+    before = {name: t.clone() for name, t in cache.items()}
+    for t in (cfg.audio_frames - 1, cfg.audio_frames + 3):
+        with pytest.raises(ValueError, match="encoder positions"):
+            m.prefill(p, {"tokens": torch.from_numpy(tokens),
+                          "frames": torch.from_numpy(frames[:, :1].repeat(
+                              t, axis=1))}, cache)
+        for name, want in before.items():
+            assert torch.equal(cache[name], want), name
+
+
 def test_param_shapes_are_repros_at_full_size():
     """whisper-small's full tree, shape for shape, against repro's
     abstract parameters: 12 encoder and 12 decoder layers (self and cross

@@ -195,6 +195,31 @@ def test_failed_pending_prefill_lockstep(pair):
     ls.decode()
 
 
+def test_decode_round_refuses_a_session_at_max_len(pair):
+    """Deliberate difference: repro's per-slot KV write drops a write at
+    position >= max_len; the port raises before any device work, and the
+    slot state and the cache stay as they were."""
+    cfg = pair[-1]
+    ls = _Lockstep(pair, slots=2, max_len=16, chunk=None, fused=False)
+    ls.admit("full", _prompts(cfg, (12,), seed=19)[0])
+    ls.admit("short", _prompts(cfg, (3,), seed=20)[0])
+    for _ in range(3):
+        ls.decode()                    # lengths 15 and 6
+    t = ls.t
+    t.decode_round()                   # "full" writes its last position
+    state = {name: getattr(t, name).copy()
+             for name in ("lengths", "tokens", "active", "key_hi", "key_lo")}
+    cache = {name: c.clone() for name, c in t.cache.items()}
+    assert t.lengths[t.sessions["full"]] == 16
+    with pytest.raises(RuntimeError, match="max_len 16"):
+        t.decode_round()
+    for name, want in state.items():
+        np.testing.assert_array_equal(getattr(t, name), want)
+    for name, want in cache.items():
+        assert torch.equal(t.cache[name], want)
+    assert t.sessions == {"full": 0, "short": 1}
+
+
 SIDS = ("a", "b", "c", "d")
 
 
