@@ -15,7 +15,8 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            1024-token admit in bf16 and fp16, a ragged 1000, a non-causal
            Sq != Sk, and f32; zamba2-7b's shared-block admit, 32 / 32 heads
            at hd 112, in bf16 and fp16; each case's route, tensor cores or
-           SIMT, is checked against ``kernel.route``) and K6 (ssm_scan at a
+           SIMT, is checked against ``kernel.route``; qwen2.5-3b's admit on
+           one shard of tp = 2, 8 / 1 heads) and K6 (ssm_scan at a
            falcon-mamba-7b admit's shape on random f32 inputs) at the main
            path's shapes, each held against its plain PyTorch version on
            the same inputs (K1/K2 exactly, also K2 at the fused round's 32
@@ -74,6 +75,35 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            beside re-prefilling the same positions, the store's bytes,
            peak memory, and how many of the migrated sessions' tokens
            agree with an unfailed run of the same cluster;
+  tp_cluster  qwen2.5-3b at full size through ``ServeCluster(tp=2)``
+           (``TP_CLUSTER``): four groups of two shards carved from eight
+           entries of ``cuda:0`` (one thread a shard, a psum at each
+           row-parallel output), four nodes, 16 slots x 2048 positions,
+           256-token chunks, 12 sessions of 256-1024 prompt tokens, 16 new
+           tokens each; 4 rounds, then the first session's node fails
+           (per-shard handoffs), one round, then one device of the oldest
+           live group is lost (``lose_device``); then 4 whole-prompt admits
+           on a live group.  The memory is reckoned and printed first; a
+           tp = 1 run with the same membership events goes before and is
+           freed.  Gates: no session lost, ``dead_groups`` 1, migrated >= 2,
+           every migrated session handed off (no miss), each stored shard
+           equal to the donor's kv-head slice, the reassembled slab to the
+           donor group's full export and the new slot's rows to the
+           shards; a shard's KV bytes half of tp = 1's; K3 one tensor-core
+           launch a layer, shard and group round, K5 one a layer, shard and
+           whole admit, K1 one a routed batch, K2 none (groups run no fused
+           route); K3 and K5 at 8 / 1 heads within their bf16 bounds of the
+           plain versions on the calls the run recorded; the first decode
+           step's logits within ``TP_LOGIT_SHARE`` of max |logit| of tp =
+           1's.  Printed: ms a cluster and a group round, peak memory, and
+           the tokens equal to the tp = 1 run;
+  tp_parity  the scenario of ``examples/tp_cluster.py`` (6 sessions of 40
+           tokens, 8 new, a node failure and a device loss; the tp = 1 run
+           fails the same two nodes) at full width and 4 layers in f32:
+           the example's gates but token equality, and every stream equal
+           to tp = 1's except where tp = 1's top-2 logit gap at the first
+           divergent step is at most the max |dlogit| of tp = 1 and tp = 2
+           there (recomputed teacher-forced);
   serve_dense  the rest of the dense family on the serve path
            (``DENSE_SERVE``): internlm2-20b at full size (48 layers, d 6144,
            48/8 heads, 19.86 B parameters; four Replicas of 16 slots x
@@ -146,7 +176,14 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            host) against ``simulate_churn`` on the card (K4) for D1HT at
            n = 1000 and 1h-Calot at n = 512: bandwidth ratio in [0.7, 1.4]
            / [0.6, 1.5], one-hop fractions within 0.006 / 0.008, both
-           D1HT one-hop fractions >= 0.99.
+           D1HT one-hop fractions >= 0.99;
+  dht_cluster  ``repro_torch.dht_cluster`` (the twin of
+           ``examples/dht_cluster.py``) with the ring's tables on the card:
+           64 DES peers, an ElasticController (model axis 4), 32 blocks of
+           256 B on 3 replicas, three adjacent crashes repaired between
+           detections; gates: no block lost, torn or stale, every block on
+           3 live replicas, the blocks' owners from one K1 lookup on the
+           card equal to the host's.
 
 Then the kernel summary line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0.  Without a CUDA
@@ -180,6 +217,7 @@ ZAMBA2_HEADS = (32, 32, 112)       # zamba2-7b's shared block (g 1, hd 112)
 QWEN3_MOE_HEADS = (64, 4, 128)     # qwen3-moe-235b-a22b (g 16)
 WHISPER_HEADS = (12, 12, 64)       # whisper-small (g 1, hd 64)
 INTERNVL_HEADS = (16, 8, 128)      # internvl2-2b (g 2, hd 128)
+TP_HEADS = (8, 1, 128)             # qwen2.5-3b's heads on one shard of two
 DEEPSEEK_HEADS = (128, 128, 192, 128)   # deepseek-v2's MLA prefill: q . k
                                         # over 128 nope + 64 rope, v 128
 # (B, S, dtype, (H, Hkv, hd)): bf16 and fp16 on the tensor-core route, f32
@@ -199,6 +237,7 @@ K3_SHAPES = [(1, 2048, "bfloat16", QWEN_HEADS),
              (16, 2048, "bfloat16", ZAMBA2_HEADS),
              (16, 2048, "bfloat16", QWEN3_MOE_HEADS),
              (16, 2048, "bfloat16", INTERNVL_HEADS),
+             (16, 2048, "bfloat16", TP_HEADS),
              (8, 1500, "bfloat16", WHISPER_HEADS),
              (8, 448, "bfloat16", WHISPER_HEADS),
              (8, 416, "bfloat16", INTERNVL_HEADS)]
@@ -244,7 +283,8 @@ K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
                    ((8, 1500, 1500, False, "bfloat16"), WHISPER_HEADS),
                    ((8, 4, 4, True, "bfloat16"), WHISPER_HEADS),
                    ((8, 4, 1500, False, "bfloat16"), WHISPER_HEADS),
-                   ((8, 384, 384, True, "bfloat16"), INTERNVL_HEADS)]
+                   ((8, 384, 384, True, "bfloat16"), INTERNVL_HEADS),
+                   ((1, 1024, 1024, True, "bfloat16"), TP_HEADS)]
 # repro's (tests/test_kernels.py) for bf16 and f32; fp16, whose mantissa
 # is 3 bits finer, 2.5e-3 (H100 80GB HBM3, 700 W: 9.8e-4 at every fp16 case)
 K5_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 2e-5}
@@ -294,6 +334,18 @@ VLM_IMAGE = (8, 128, 32)
 CLUSTER = dict(slots=32, max_len=2048, chunk=256, duty=6, sessions=32,
                system=8, system_len=512, prompt=(128, 1024), own=(64, 512),
                max_new=32, rounds=8)
+# the tensor-parallel cluster (qwen2.5-3b at full size, bf16, 4 groups of
+# tp = 2 on the one card, 4 nodes): slots and positions a replica, prefill
+# chunk, sessions, prompt lengths, new tokens a session, rounds before the
+# node failure, whole-prompt admits on a group (K5 at the shard's heads)
+TP_CLUSTER = dict(slots=16, max_len=2048, chunk=256, sessions=12,
+                  prompt=(256, 1024), max_new=16, rounds=4, whole=4)
+# the first decode step's max |logit(tp=2) - logit(tp=1)| in bf16, as a
+# share of max |logit(tp=1)|: twice the largest share the serve phase's
+# bf16 whole-prompt and chunked logits differ by (0.23 of 4.53 on an H100
+# 80GB HBM3 at 700 W, its ``last_logits_max_abs_diff_vs_chunked``)
+TP_LOGIT_SHARE = 0.1
+TP_PARITY_LAYERS = 4               # the f32 parity leg: full width, 4 layers
 # whisper-small at full size: B streams of 1500 stub frames, prompt tokens,
 # max_len (whisper's decoder context), lockstep greedy steps
 ENCDEC = (8, 4, 448, 64)
@@ -708,7 +760,9 @@ def main() -> int:
         **{key: main3[key] for key in summary}}
     for key, heads, model_name in (("hd112", ZAMBA2_HEADS, "zamba2-7b"),
                                    ("g16", QWEN3_MOE_HEADS, "qwen3-moe"),
-                                   ("g2", INTERNVL_HEADS, "internvl2-2b")):
+                                   ("g2", INTERNVL_HEADS, "internvl2-2b"),
+                                   ("tp_g8", TP_HEADS,
+                                    "qwen2.5-3b, one shard of tp = 2")):
         row = k3_row(16, 2048, "bfloat16", heads)
         results["K3"][key] = {
             "shape": f"B=16, {heads_text(heads)}, S=2048, bf16, lengths in "
@@ -792,7 +846,9 @@ def main() -> int:
             ("whisper_cross_prefill", WHISPER_HEADS, 4, 1500,
              "whisper-small cross attention of a 4-token prefill"),
             ("internvl_image_prefill", INTERNVL_HEADS, 384, 384,
-             "internvl2-2b image prefill, a layer")):
+             "internvl2-2b image prefill, a layer"),
+            ("tp_g8", TP_HEADS, 1024, 1024,
+             "qwen2.5-3b whole-prompt admit on one shard of tp = 2")):
         row = next(r for r in k5_rows
                    if (r["H"], r["Hkv"], r["hd"], r["dv"]) == v_heads(heads)
                    and r["dtype"] == "bfloat16"
@@ -927,12 +983,17 @@ def main() -> int:
     results["K5"]["launches"] = whole_prompt_admits(
         model, params, reqs[:8], fused[0], dev)
     cluster_launches = serve_cluster_phase(dev, model, params)
+    tp_launches = tp_cluster_phase(dev, model, params)
 
     del params, model, cache, logits
+    gc.collect()
     torch.cuda.empty_cache()
+    tp_parity_phase(dev)
     for key in ("K1", "K2", "K3"):
         results[key]["launches"] = launches[key]
         results[key]["launches_serve_cluster"] = cluster_launches[key]
+    for key in ("K1", "K2", "K3", "K5"):
+        results[key]["launches_tp_cluster"] = tp_launches[key]
     dense = serve_models_phase(dev, rng, "serve_dense", DENSE_SERVE)
     for key in ("K1", "K2", "K3", "K5"):
         results[key]["launches_serve_dense"] = {
@@ -956,6 +1017,7 @@ def main() -> int:
     latency_phase(dev, churn)
     results["K7"]["launches"] = quickstart_phase(dev)
     results["K4"]["launches"] += des_twin_phase(dev)
+    results["K1"]["launches_dht_cluster"] = dht_cluster_phase(dev)
     for key in results:
         results[key]["max_err"] = results[key]["max_abs_err"]
     emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
@@ -2348,6 +2410,451 @@ def des_twin_phase(dev) -> int:
                                    vec.one_hop_fraction) < 0.99:
             raise AssertionError("des_twin d1ht: one-hop below 0.99")
     return k4
+
+
+def tp_cluster_phase(dev, model, params, shape=TP_CLUSTER) -> dict:
+    """qwen2.5-3b at full size through ``ServeCluster(tp=2)`` on the one
+    card (see the module docstring): four groups of two shards carved
+    from eight entries of ``cuda:0``, a node failure with per-shard
+    handoffs, then the loss of one device of a live group.  A tp = 1 run
+    with the same membership events goes first and is freed before it.
+    Counters are zeroed just before the gated tp = 2 run (which ends with
+    ``whole`` whole-prompt admits on a group) and read just after; K3
+    and K5 are then held against their plain versions on the calls that
+    run recorded.  Returns the launches by kernel."""
+    import torch
+    from repro_torch import tp_cluster
+    from repro_torch.dht.data import unpack_array
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import concat_kv_heads
+    from repro_torch.serve import Replica, Request, server
+    cfg, c, tp = model.cfg, shape["chunk"], 2
+    rng = np.random.default_rng([SEED, 22])
+    reqs = [Request(f"tp-{i}", rng.integers(0, cfg.vocab, int(n),
+                                            dtype=np.int32), shape["max_new"])
+            for i, n in enumerate(rng.integers(
+                shape["prompt"][0], shape["prompt"][1] + 1,
+                size=shape["sessions"]))]
+    sids = [r.session_id for r in reqs]
+    kw = dict(slots=shape["slots"], max_len=shape["max_len"],
+              prefill_chunk=c, steps=shape["rounds"], mirror_loss=True)
+
+    # the memory, reckoned before the runs
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    kv_token = 2 * cfg.num_layers * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2
+    kv_replica = kv_token * shape["slots"] * shape["max_len"]
+    reckoned = {"weights_gib": weight_bytes / 2**30,
+                "four_groups_gib": 4 * weight_bytes / 2**30,
+                "kv_bytes_per_token": kv_token,
+                "kv_gb_per_replica": kv_replica / 1e9,
+                "peak_gib": (5 * weight_bytes + 4 * kv_replica) / 2**30}
+    emit({"phase": "tp_cluster_reckoning", **reckoned})
+
+    # tp = 1 with the same events: its tokens and its cache bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base, st1, cl1 = tp_cluster.run(model, params, reqs, 1, dev, **kw)
+    torch.cuda.synchronize()
+    tp1_s = time.perf_counter() - t0
+    tp1_peak = torch.cuda.max_memory_allocated()
+    kv1 = sum(t.numel() * t.element_size()
+              for t in next(iter(cl1.replicas.values())).cache.values())
+    del cl1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    notes = {"k1_batches": 0, "round_ms": [], "group_rounds": []}
+
+    def routed(cluster):
+        # the submit batch through the router: one K1 launch
+        notes["routed"] = dict(zip(sids, cluster.router.route(sids)))
+        notes["k1_batches"] += 1
+
+    def submitted(cluster):
+        rep = next(iter(cluster.replicas.values()))
+        notes["per_shard_kv"] = rep.group.per_shard_cache_bytes(rep.cache)
+        inner = cluster.step
+
+        def timed():
+            busy = sum(1 for r in cluster.replicas.values() if r.sessions)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner()
+            torch.cuda.synchronize()
+            notes["round_ms"].append((time.perf_counter() - t) * 1e3)
+            notes["group_rounds"].append(busy)
+            return out
+        cluster.step = timed
+
+    def donor_slabs(cluster, victim):
+        """The victim's live sessions: chunks exported, chunks a handoff
+        fetches, each chunk's per-shard rows and its full export."""
+        rep = cluster.replicas[victim]
+        g, out = rep.group, {}
+        for rec in cluster.live_sessions:
+            if rec.owner != victim:
+                continue
+            s = len(rec.prompt) + len(rec.generated)
+            covered = min(rec.exported_chunks, (s - 1) // c)
+            slot = rep.sessions[rec.session_id]
+            out[rec.session_id] = (rec.exported_chunks, covered, [
+                [slab_bytes(rep.cache[i], slot, j * c, (j + 1) * c)
+                 for i in range(g.tp)] for j in range(covered)], [
+                g.export_kv_block(rep.cache, slot, j * c, c).tobytes()
+                for j in range(covered)])
+        return out
+
+    def before(cluster, victim, leg):
+        notes[leg] = {"victim": victim,
+                      "sessions": donor_slabs(cluster, victim),
+                      "counts": (cluster.handoffs, cluster.handoff_misses,
+                                 cluster.handoff_chunks)}
+
+    def after(cluster, leg):
+        info = notes[leg]
+        moved = sorted(info["sessions"])
+        h, m, ch = (a - b for a, b in zip(
+            (cluster.handoffs, cluster.handoff_misses,
+             cluster.handoff_chunks), info["counts"]))
+        want_ch = sum(cov for _, cov, _, _ in info["sessions"].values())
+        if not (h == len(moved) >= 1 and m == 0 and ch == want_ch):
+            raise AssertionError(f"{leg}: handoffs {h} of {len(moved)}, "
+                                 f"misses {m}, chunks {ch} (want {want_ch})")
+        for sid in moved:
+            _, covered, shards, full = info["sessions"][sid]
+            rec = cluster.sessions[sid]
+            rep = cluster.replicas[rec.owner]
+            slot = rep.sessions[sid]
+            for j in range(covered):
+                got = [unpack_array(cluster.blocks.get(
+                    cluster._block_name(sid, j, i))) for i in range(tp)]
+                if [b.tobytes() for b in got] != shards[j]:
+                    raise AssertionError(f"{sid} chunk {j}: a stored shard "
+                                         "differs from the donor's kv-head "
+                                         "slice")
+                if concat_kv_heads(got).tobytes() != full[j]:
+                    raise AssertionError(f"{sid} chunk {j}: the reassembled "
+                                         "slab differs from the full export")
+                if [slab_bytes(rep.cache[i], slot, j * c, (j + 1) * c)
+                        for i in range(tp)] != shards[j]:
+                    raise AssertionError(f"{sid} chunk {j}: imported rows "
+                                         "differ from the shards")
+            if rec.owner == info["victim"] or rec.owner not in \
+                    cluster.state.replica_set(rec.key, 2):
+                raise AssertionError(f"{sid} re-homed off its replica set")
+        # the re-home batch through the router: one K1 launch
+        cluster.router.route(moved)
+        notes["k1_batches"] += 1
+        info.update(moved=moved, handoffs=h, chunks=ch)
+
+    def before_fail(cluster):
+        before(cluster, cluster.sessions[sids[0]].owner, "fail")
+
+    def before_loss(cluster):
+        before(cluster, next(iter(cluster.replicas)), "loss")
+
+    # the gated run: counters zeroed just before, read just after
+    rec3, rec5, rows = {}, {}, [0]
+    op3, op5, op_rows = layers._decode_op, layers._flash_op, \
+        server._decode_rows
+
+    def recording3(q, k, v, length):
+        if q.shape[0] not in rec3:
+            rec3[q.shape[0]] = tuple(t.clone() for t in (q, k, v, length))
+        return op3(q, k, v, length)
+
+    def recording5(q, k, v, causal):
+        if q.shape[1] not in rec5:
+            rec5[q.shape[1]] = tuple(t.clone() for t in (q, k, v))
+        return op5(q, k, v, causal=causal)
+
+    def counting_rows(*a, **k):
+        rows[0] += 1
+        return op_rows(*a, **k)
+
+    for fn in (rl_ops.ring_lookup64, rl_ops.ring_lookup_bucketed,
+               da_ops.decode_attention, fa_ops.flash_attention):
+        fn.launches = 0
+    da_ops.decode_attention.tc_launches = 0
+    fa_ops.flash_attention.tc_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    layers._decode_op, layers._flash_op = recording3, recording5
+    server._decode_rows = counting_rows
+    t0 = time.perf_counter()
+    try:
+        toks, st2, cluster = tp_cluster.run(
+            model, params, reqs, tp, dev, **kw, hooks={
+                "routed": routed, "submitted": submitted,
+                "before_fail": before_fail,
+                "after_fail": lambda cl: after(cl, "fail"),
+                "before_loss": before_loss,
+                "after_loss": lambda cl: after(cl, "loss")})
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        # whole-prompt admits on a live group: K5 at the shard's heads
+        gi = next(i for i in range(len(cluster._group_devices))
+                  if i not in cluster._dead_groups)
+        group = cluster._group_obj(gi)
+        whole = Replica(model, slots=shape["whole"],
+                        max_len=shape["max_len"], prefill_chunk=None,
+                        group=group)
+        whole.attach_params(cluster._params_for(gi))
+        t0 = time.perf_counter()
+        firsts = {r.session_id: whole.admit(r) for r in reqs[:shape["whole"]]}
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        group_ms = []
+        for _ in range(4):
+            t = time.perf_counter()
+            whole.decode_round()
+            torch.cuda.synchronize()
+            group_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        layers._decode_op, layers._flash_op = op3, op5
+        server._decode_rows = op_rows
+    launches = {"K1": rl_ops.ring_lookup64.launches,
+                "K2": rl_ops.ring_lookup_bucketed.launches,
+                "K3": da_ops.decode_attention.launches,
+                "K3_tc": da_ops.decode_attention.tc_launches,
+                "K5": fa_ops.flash_attention.launches,
+                "K5_tc": fa_ops.flash_attention.tc_launches}
+    peak = torch.cuda.max_memory_allocated()
+    sharded = len(cluster._group_objs)     # groups whose weights were cut
+    # gates: the cluster's, the shards' bytes, the launches
+    lost = [s for s in sids if len(cluster.sessions[s].generated)
+            != shape["max_new"]]
+    if lost or st2["live"] or cluster.pending_migrations:
+        raise AssertionError(f"tp_cluster: sessions lost: {lost}")
+    if st2["dead_groups"] != 1 or st2["migrated"] < 2 \
+            or st2["handoffs"] < 1 or st2["handoff_misses"]:
+        raise AssertionError(f"tp_cluster stats {st2}")
+    if notes["per_shard_kv"] * tp != kv1:
+        raise AssertionError(f"a shard holds {notes['per_shard_kv']} B of KV "
+                             f"against tp = 1's {kv1}")
+    want3 = cfg.num_layers * rows[0]
+    want5 = cfg.num_layers * tp * shape["whole"]
+    if launches["K3"] != want3 or launches["K3_tc"] != want3 \
+            or launches["K5"] != want5 or launches["K5_tc"] != want5 \
+            or launches["K1"] != notes["k1_batches"] or launches["K2"]:
+        raise AssertionError(f"tp_cluster launch counts {launches}: want K3 "
+                             f"{want3}, K5 {want5}, K1 {notes['k1_batches']}"
+                             ", K2 0")
+    errs = {"K3": {}, "K5": {}}
+    for b, (q, k, v, length) in sorted(rec3.items()):
+        if (q.shape[1], k.shape[2], q.shape[2]) != TP_HEADS:
+            raise AssertionError(f"K3 ran at {q.shape} / {k.shape}")
+        got = da_ops.decode_attention(q, k, v, length)
+        errs["K3"][b] = float((got.float() - decode_attention_ref(
+            q, k, v, length).float()).abs().max())
+    for sq, (q, k, v) in sorted(rec5.items()):
+        if (q.shape[2], k.shape[2], q.shape[3]) != TP_HEADS:
+            raise AssertionError(f"K5 ran at {q.shape} / {k.shape}")
+        got = fa_ops.flash_attention(q, k, v, causal=True)
+        errs["K5"][sq] = float((got.float() - flash_attention_ref(
+            q, k, v, causal=True).float()).abs().max())
+    if not errs["K3"] or not errs["K5"] \
+            or max(errs["K3"].values()) > BF16_ATOL \
+            or max(errs["K5"].values()) > K5_TOL["bfloat16"]:
+        raise AssertionError(f"tp_cluster kernels against plain: {errs}")
+    # where a group round's host time goes: the same 4 sessions' rounds on
+    # a tp = 1 replica, and the group's 73 psums a forward (embedding, and
+    # wo and w2 in each of 36 layers) on a 16-element tensor
+    one = Replica(model, slots=shape["whole"], max_len=shape["max_len"],
+                  prefill_chunk=None, device=dev)
+    one.attach_params(params)
+    for r in reqs[:shape["whole"]]:
+        one.admit(r)
+    tp1_ms = []
+    for _ in range(4):
+        t = time.perf_counter()
+        one.decode_round()
+        torch.cuda.synchronize()
+        tp1_ms.append((time.perf_counter() - t) * 1e3)
+    from repro_torch.sharding.specs import psum_tp
+    x = torch.zeros(16, device=dev)
+    psums = 1 + 2 * cfg.num_layers
+    group.map(lambda i: [psum_tp(x) for _ in range(psums)])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    group.map(lambda i: [psum_tp(x) for _ in range(psums)])
+    torch.cuda.synchronize()
+    psum_ms = (time.perf_counter() - t) * 1e3
+    del whole, one, cluster, rec3, rec5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first decode step's logits, tp = 2 against tp = 1 (whole prompt)
+    from repro_torch.models.tp import TPReplicaGroup
+    g = TPReplicaGroup(model, [dev, dev])
+    sp = g.shard_params(params)
+    r = reqs[0]
+    batch = {"tokens": torch.from_numpy(r.prompt).to(dev)[None]}
+    l1, c1 = model.prefill(params, batch, model.init_cache(
+        1, shape["max_len"], device=dev))
+    l2, c2 = g.prefill(sp, batch, g.init_cache(1, shape["max_len"]))
+    nxt = torch.argmax(l1, dim=-1).to(torch.int32)[:, None]
+    d1, _ = model.decode_step(params, c1, nxt, len(r.prompt))
+    d2, _ = g.decode_step(sp, c2, nxt, len(r.prompt))
+    dlogit = float((d1 - d2).abs().max())
+    scale = float(d1.abs().max())
+    first_same = int(torch.argmax(l1)) == int(torch.argmax(l2))
+    del g, sp, c1, c2
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not dlogit <= TP_LOGIT_SHARE * scale:
+        raise AssertionError(f"tp = 2 decode logits {dlogit} off tp = 1's "
+                             f"(max |logit| {scale})")
+    agree = sum(a == b for s in sids for a, b in zip(base[s], toks[s]))
+    same = sum(base[s] == toks[s] for s in sids)
+    per_round = [ms / max(n, 1) for ms, n in zip(notes["round_ms"],
+                                                  notes["group_rounds"])]
+    emit({"phase": "tp_cluster", "model": cfg.name, "layers": cfg.num_layers,
+          "tp": tp, "groups": st2["groups"], "sharded_groups": sharded,
+          "nodes": 4,
+          "pool": "8 x cuda:0", "slots": shape["slots"],
+          "max_len": shape["max_len"], "prefill_chunk": c,
+          "sessions": len(reqs),
+          "prompt_tokens": sum(len(r.prompt) for r in reqs),
+          "max_new_tokens": shape["max_new"],
+          "rounds_before_failure": shape["rounds"],
+          "failed_node_sessions": len(notes["fail"]["moved"]),
+          "lost_group_sessions": len(notes["loss"]["moved"]),
+          "handoffs_fail_loss": [notes["fail"]["handoffs"],
+                                 notes["loss"]["handoffs"]],
+          "handoff_chunks_fail_loss": [notes["fail"]["chunks"],
+                                       notes["loss"]["chunks"]],
+          "stats": st2, "stats_tp1": st1,
+          "kv_bytes_per_shard": notes["per_shard_kv"],
+          "kv_bytes_tp1_replica": kv1, "launches": launches,
+          "group_decode_rows_calls": rows[0],
+          "kernels_vs_plain_max_abs_err": errs,
+          "first_step_max_abs_dlogit": dlogit,
+          "first_step_max_abs_logit": scale,
+          "first_step_bound": TP_LOGIT_SHARE * scale,
+          "first_token_equal": first_same,
+          "ms_per_cluster_round": {"mean": float(np.mean(notes["round_ms"])),
+                                   "median": float(np.median(
+                                       notes["round_ms"])),
+                                   "rounds": len(notes["round_ms"])},
+          "ms_per_group_round_mean": float(np.mean(per_round)),
+          "whole_prompt_admits": shape["whole"], "whole_prompt_s": whole_s,
+          "round_ms_b4": {"group": group_ms, "tp1": tp1_ms,
+                          "group_median": float(np.median(group_ms[1:])),
+                          "tp1_median": float(np.median(tp1_ms[1:]))},
+          "psums_per_forward": psums,
+          "psums_of_a_forward_ms": psum_ms,
+          "whole_first_tokens_equal_to_tp1_stream": sum(
+              firsts[s] == base[s][0] for s in firsts),
+          "tokens_equal_to_tp1_run": f"{agree}/{len(sids) * shape['max_new']}",
+          "sessions_equal_to_tp1_run": f"{same}/{len(sids)}",
+          "tp1_run_s": tp1_s, "tp1_peak_gib": tp1_peak / 2**30,
+          "tp2_run_s": run_s, "max_memory_allocated": peak,
+          "max_memory_allocated_gib": peak / 2**30,
+          "reckoned_peak_gib": reckoned["peak_gib"]})
+    return launches
+
+
+def tp_parity_phase(dev) -> None:
+    """The scenario of ``examples/tp_cluster.py`` (6 sessions of 40
+    tokens, 8 new, a node failure and a device loss; tp = 1 fails the
+    same two nodes) on qwen2.5-3b at full width, depth cut to
+    ``TP_PARITY_LAYERS``, in f32: the example's gates but token equality,
+    and every token stream equal to tp = 1's except where tp = 1's top-2
+    logit gap at the first divergent step is at most the max |Δlogit|
+    between tp = 1 and tp = 2 there (recomputed teacher-forced)."""
+    import torch
+    from repro_torch import tp_cluster
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.tp import TPReplicaGroup
+    cfg = get_config("qwen2.5-3b").with_overrides(
+        num_layers=TP_PARITY_LAYERS, dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    reqs = tp_cluster.requests(cfg)
+    t0 = time.perf_counter()
+    base, st1, cl = tp_cluster.run(model, params, reqs, 1, dev,
+                                   mirror_loss=True)
+    del cl
+    toks, st2, cl = tp_cluster.run(model, params, reqs, 2, dev)
+    del cl
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    faults = [f for f in tp_cluster.check(base, toks, st2)
+              if not f.startswith("tp=2 token streams")]
+    if faults:
+        raise AssertionError(f"tp_parity: {faults}")
+    g = TPReplicaGroup(model, [dev, dev])
+    sp = g.shard_params(params)
+    flips = []
+    for r in reqs:
+        a, b = base[r.session_id], toks[r.session_id]
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            continue
+        seq = np.concatenate([r.prompt, np.asarray(a[:t], np.int32)])
+        batch = {"tokens": torch.from_numpy(seq).to(dev)[None]}
+        l1, _ = model.prefill(params, batch, model.init_cache(1, 64,
+                                                              device=dev))
+        l2, _ = g.prefill(sp, batch, g.init_cache(1, 64))
+        top = torch.topk(l1[0], 2).values
+        flips.append({"session": r.session_id, "step": t,
+                      "tp1_top2_gap": float(top[0] - top[1]),
+                      "max_abs_dlogit": float((l1 - l2).abs().max())})
+    r = reqs[0]
+    batch = {"tokens": torch.from_numpy(r.prompt).to(dev)[None]}
+    l1, _ = model.prefill(params, batch, model.init_cache(1, 64, device=dev))
+    l2, _ = g.prefill(sp, batch, g.init_cache(1, 64))
+    admit_dlogit = float((l1 - l2).abs().max())
+    same = sum(base[s] == toks[s] for s in base)
+    emit({"phase": "tp_parity", "model": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.dtype, "sessions": len(reqs),
+          "sessions_equal": f"{same}/{len(reqs)}", "flips": flips,
+          "admit_max_abs_dlogit": admit_dlogit, "stats": st2,
+          "stats_tp1": st1, "wall_s": wall})
+    bad = [f for f in flips if f["tp1_top2_gap"] > f["max_abs_dlogit"]]
+    if bad:
+        raise AssertionError(f"tp_parity: tokens flipped where tp = 1's top-2 "
+                             f"gap exceeds |dlogit|: {bad}")
+    del g, sp, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dht_cluster_phase(dev) -> int:
+    """``repro_torch.dht_cluster`` with the ring's tables on the card: the
+    example's gates (no block lost, torn or stale, every block on 3 live
+    replicas) and the blocks' owners resolved on the card equal to the
+    host's.  Returns K1's launches in that run."""
+    import torch
+    from repro_torch import dht_cluster
+    from repro_torch.kernels.ring_lookup import ops as rl_ops
+    lines = []
+    rl_ops.ring_lookup64.launches = 0
+    t0 = time.perf_counter()
+    out = dht_cluster.run(dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rl_ops.ring_lookup64.launches
+    emit({"phase": "dht_cluster", "lines": lines, "k1_launches": launches,
+          **{k: out[k] for k in ("ok", "nodes", "members", "device",
+                                 "first_plan", "plan", "dropped",
+                                 "generation", "stale_peers", "bad_blocks",
+                                 "min_replicas", "upload_bytes", "repair",
+                                 "owners_equal")}, "wall_s": wall})
+    if not out["ok"] or not out["device"].startswith("cuda") \
+            or out["min_replicas"] < dht_cluster.REPLICATION or launches < 1:
+        raise AssertionError(f"dht_cluster: {out}, K1 {launches}")
+    return launches
 
 
 def _device():

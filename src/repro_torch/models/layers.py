@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.ops import decode_attention as _decode_op
 from ..kernels.flash_attention.ops import flash_attention as _flash_op
+from ..sharding.specs import psum_tp, tp_axis, tp_index
 
 Params = Dict[str, Any]
 NEG = -1e30
@@ -187,7 +188,9 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             # prefill from position 0: attend over the fresh segment
             out = flash_attention(q, k, v, causal=causal)
         cache = (k_cache, v_cache)
-    out = out.reshape(b, s, h * hd) @ params["wo"]
+    # row-parallel combine: under TP each shard holds h/tp heads and the
+    # matching wo rows, so the projection is a partial sum over heads
+    out = psum_tp(out.reshape(b, s, h * hd) @ params["wo"])
     return out, cache
 
 
@@ -225,6 +228,16 @@ def attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def attention_specs(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of ``attention_shapes``'s leaves (``repro``'s
+    ``attention_specs``)."""
+    sp = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+          "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        sp.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    return sp
+
+
 # ---------------------------------------------------------------------------
 # MLA attention (deepseek-v2): compressed KV, shared rope key
 # ---------------------------------------------------------------------------
@@ -243,6 +256,18 @@ def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     else:
         shapes["wq"] = (d, h * (qk_n + qk_r))
     return shapes
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of ``mla_shapes``'s leaves: the compressions replicate,
+    the per-head decompressions and the output split on heads."""
+    sp = {"w_dkv": ("embed", None), "w_ukv": (None, "heads"),
+          "wo": ("heads", "embed")}
+    if cfg.mla_q_lora:
+        sp.update({"w_dq": ("embed", None), "w_uq": (None, "heads")})
+    else:
+        sp["wq"] = ("embed", "heads")
+    return sp
 
 
 def _mla_absorbed(w_ukv: torch.Tensor, q_nope: torch.Tensor,
@@ -325,7 +350,7 @@ def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       dim=-1)
         out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                               causal=True)
-    out = out.reshape(b, s, h * v_hd) @ params["wo"]
+    out = psum_tp(out.reshape(b, s, h * v_hd) @ params["wo"])
     return out, cache
 
 
@@ -339,6 +364,13 @@ def mlp_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, Tuple[int, ...]]:
     if cfg.act == "silu":
         shapes["w3"] = (cfg.d_model, d_ff)
     return shapes
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    sp = {"w1": ("embed", "ff"), "w2": ("ff", "embed")}
+    if cfg.act == "silu":
+        sp["w3"] = ("embed", "ff")
+    return sp
 
 
 _ACTS = {
@@ -357,7 +389,7 @@ def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = _ACTS[cfg.act](x @ params["w1"])
     if "w3" in params:
         h = h * (x @ params["w3"])
-    return h @ params["w2"]
+    return psum_tp(h @ params["w2"])          # row-parallel over the ff shard
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +416,24 @@ def moe_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         if cfg.act == "silu":
             shapes["sw3"] = (d, fs)
     return shapes
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of ``moe_shapes``'s leaves (``repro``'s ``moe_specs``)."""
+    sp = {"router": ("embed", None),
+          "w1": ("experts", "moe_embed", "moe_ff"),
+          "w2": ("experts", "moe_ff", "moe_embed")}
+    if cfg.act == "silu":
+        sp["w3"] = ("experts", "moe_embed", "moe_ff")
+    if cfg.moe_weight_dtype == "int8":
+        for name in MOE_QUANTIZED:
+            if name in sp:
+                sp[name + "_scale"] = ("experts",)
+    if cfg.moe_shared_experts:
+        sp.update({"sw1": ("embed", "ff"), "sw2": ("ff", "embed")})
+        if cfg.act == "silu":
+            sp["sw3"] = ("embed", "ff")
+    return sp
 
 
 def moe_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
@@ -503,11 +553,35 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
         if "sw3" in params:
             hs = hs * (x @ params["sw3"])
         out = out + hs @ params["sw2"]
-    return out
+    # under TP the expert (and shared-expert) ff dim is sharded while the
+    # replicated router picks the same slots on every shard, so the gate
+    # scaling, the combine and the shared experts are linear in the
+    # shards' partial sums: one psum after the combine
+    return psum_tp(out)
+
+
+def embed_specs(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    sp = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = ("embed", "vocab")
+    return sp
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embedding"][tokens.to(torch.int64)].to(dt(cfg))
+    """The token embeddings.  Under TP with a vocab-sharded table each
+    shard looks up the tokens in its row range, zeros the rest, and one
+    psum assembles the full embedding on every shard."""
+    table = params["embedding"]
+    tokens = tokens.to(torch.int64)
+    if tp_axis() is not None and table.shape[0] != cfg.vocab:
+        vloc = table.shape[0]
+        loc = tokens - tp_index() * vloc
+        ok = (loc >= 0) & (loc < vloc)
+        out = table[loc.clamp(0, vloc - 1)]
+        return psum_tp(torch.where(ok[..., None], out,
+                                   torch.zeros((), dtype=out.dtype,
+                                               device=out.device)).to(dt(cfg)))
+    return table[tokens].to(dt(cfg))
 
 
 def logits_fn(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

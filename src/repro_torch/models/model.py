@@ -71,6 +71,23 @@ class Model:
         """``repro``'s parameter tree, as numpy, onto the device."""
         return convert.params_from_jax(tree, self.cfg, _on(device))
 
+    def param_pspecs(self) -> Params:
+        """Logical-axis tuples of the parameter tree, as ``repro``'s
+        ``Model.param_pspecs`` (the transformer families: what
+        ``models.tp`` shards)."""
+        return self._transformer("param_pspecs").param_pspecs(self.cfg)
+
+    def cache_pspecs(self) -> Dict[str, Tuple]:
+        """Logical-axis tuples of the cache (the transformer families)."""
+        return self._transformer("cache_pspecs").cache_pspecs(self.cfg)
+
+    def _transformer(self, what: str):
+        if _module(self.cfg) is not transformer:
+            raise NotImplementedError(
+                f"{what}: the port names logical axes for the transformer "
+                f"families only, not family={self.cfg.family!r}")
+        return transformer
+
     # -- serving ---------------------------------------------------------------
     @property
     def supports_per_slot_decode(self) -> bool:

@@ -55,6 +55,21 @@ def param_shapes(cfg: ModelConfig) -> Params:
     }
 
 
+def param_pspecs(cfg: ModelConfig) -> Params:
+    """Logical-axis tuples of ``param_shapes``'s tree (``repro``'s
+    ``param_pspecs``): what a tensor-parallel group splits each leaf on."""
+    layer = {"ln1": (None,), "ln2": (None,),
+             "attn": L.mla_specs(cfg) if cfg.mla_kv_lora
+             else L.attention_specs(cfg)}
+    if cfg.moe_experts:
+        layer["moe"] = L.moe_specs(cfg)
+    else:
+        layer["mlp"] = L.mlp_specs(cfg)
+    return {"embed": L.embed_specs(cfg),
+            "layers": _map(lambda sp: ("layers",) + tuple(sp), layer),
+            "ln_f": (None,)}
+
+
 def param_dtypes(cfg: ModelConfig) -> Dict[str, Any]:
     """The leaves not held in the working dtype, at their place in
     ``param_shapes``'s tree: the MoE block's int8 experts and f32 scales
@@ -131,6 +146,16 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Tuple]
     return {"k": shape, "v": shape}
 
 
+def cache_pspecs(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of the cache: k/v split on kv_heads; MLA's latent
+    ``c``/``r`` replicate."""
+    if cfg.mla_kv_lora:
+        return {"c": ("layers", "batch", "kv_seq", None),
+                "r": ("layers", "batch", "kv_seq", None)}
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Dict[str, torch.Tensor]:
     return {name: torch.zeros(shape, dtype=L.dt(cfg), device=device)
@@ -190,14 +215,31 @@ def export_kv_block(cfg: ModelConfig, cache: Dict, row: int, off: int,
 
 def export_kv_block_shards(cfg: ModelConfig, cache: Dict, row: int, off: int,
                            chunk: int, shards: int) -> list:
-    """Per-shard slabs of one chunk (shard s carries kv_heads [s*H/shards,
-    (s+1)*H/shards)).  One card holds every head, so only ``shards=1``
-    exists until the tensor-parallel slice (ROADMAP queue 1, item 3)."""
-    if shards != 1:
-        raise NotImplementedError("KV shards across a tensor-parallel group "
-                                  "are not ported yet: ROADMAP queue 1, "
-                                  "item 3")
-    return [export_kv_block(cfg, cache, row, off, chunk)]
+    """Per-shard slabs of one chunk: shard ``s`` carries kv_heads
+    [s*H/shards, (s+1)*H/shards) in the (2, chunk, layers, heads,
+    head_dim) wire format, so ``concat_kv_heads`` of the slabs is the
+    full slab (``repro``'s slicing)."""
+    hkv = cfg.num_kv_heads
+    if shards < 1 or hkv % shards:
+        raise ValueError(f"shards={shards} must divide kv_heads={hkv}")
+    hl = hkv // shards
+    sl = slice(off, off + chunk)
+    out = []
+    for s_i in range(shards):
+        heads = slice(s_i * hl, (s_i + 1) * hl)
+        slab = torch.stack([cache["k"][:, row, sl, heads],
+                            cache["v"][:, row, sl, heads]])
+        out.append(_host(slab.transpose(1, 2).contiguous()))
+    return out
+
+
+def concat_kv_heads(slabs) -> np.ndarray:
+    """Join per-shard slabs on the kv-head axis (axis 3), keeping a
+    bfloat16 slab's ``Bf16Words`` tag."""
+    if len(slabs) == 1:
+        return slabs[0]
+    out = np.concatenate([np.asarray(b) for b in slabs], axis=3)
+    return Bf16Words.of(out) if isinstance(slabs[0], Bf16Words) else out
 
 
 def cache_with_blocks(cfg: ModelConfig, max_len: int, blocks,

@@ -1,14 +1,13 @@
 """Replica restarts on membership generations (the port's copy of
-``ReplicaSupervisor`` from ``repro.runtime.failover``).
+``ReplicaSupervisor`` from ``repro.runtime.failover``), with its registry
+of tensor-parallel replica groups.
 
 ``repro``'s ``FailoverManager`` (checkpoint restore) waits for the
-training slice, and the supervisor's tensor-parallel group registry
-(``register_group``, ``device_lost``) for the TP slice (ROADMAP queue 1,
-items 4 and 3).
+training slice (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from .membership import Membership
 
@@ -29,6 +28,9 @@ class ReplicaSupervisor:
         self.generation = 0
         self._required: Dict[int, int] = {}
         self.membership = membership
+        # node id -> device ids of its replica group (tensor-parallel
+        # serving: one ring node spans a group of devices; see models.tp)
+        self._groups: Dict[int, tuple] = {}
         membership.subscribe(self._on_event)
 
     def _on_event(self, ev) -> None:
@@ -44,3 +46,33 @@ class ReplicaSupervisor:
         """True iff the node suffered an event since ``stamp`` that
         invalidates device state created under it."""
         return stamp < self._required.get(node_id, 0)
+
+    # -- replica groups (tensor-parallel serving) ---------------------------
+    def register_group(self, node_id: int, device_ids) -> None:
+        """Bind a ring node to the devices of its TP replica group."""
+        self._groups[node_id] = tuple(device_ids)
+
+    def release_group(self, node_id: int) -> None:
+        self._groups.pop(node_id, None)
+
+    def group_owner(self, device_id: int) -> Optional[int]:
+        """Ring node whose replica group holds ``device_id`` (None if the
+        device backs no registered group)."""
+        for node, devs in self._groups.items():
+            if device_id in devs:
+                return node
+        return None
+
+    def device_lost(self, device_id: int) -> Optional[int]:
+        """Partial-group loss: losing ANY device of a group loses the
+        whole replica (weight shards and KV slices are useless without
+        their siblings).  Fails the owning node on the ring, which drives
+        the serve cluster's migration of its sessions to healthy groups.
+        Returns the failed node id."""
+        node = self.group_owner(device_id)
+        if node is None:
+            return None
+        self._groups.pop(node, None)
+        if node in set(self.membership.members()):
+            self.membership.fail(node)
+        return node

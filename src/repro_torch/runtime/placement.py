@@ -1,5 +1,11 @@
-"""Placement policies of the port (DESIGN.md §13): the ranking a key's
-replica-set candidates go through.
+"""Consistent-hash placement of work onto ring members (paper §III) and
+the placement policies of the port (DESIGN.md §13).
+
+``Placement`` resolves anything that must be owned by exactly one node
+(sessions, MoE experts, shards) as a key on the ring: its owner is the
+key's successor, one local lookup against the full routing table.
+
+A placement policy ranks a key's replica-set candidates.
 
 A policy receives the ring's ``ReplicaView`` (the r-way successor list
 plus candidate metadata) and returns a RANKING of the candidates: a
@@ -8,16 +14,85 @@ function of its inputs so two nodes with the same routing table agree
 with zero coordination.  ``RingSuccessor`` ranks in ring order;
 ``LatencyAware`` ranks by the RTT a ``Topology`` estimates from the
 request's origin, with an affinity hysteresis for the current holder.
-(``repro``'s ``Placement`` comes with the ``dht_cluster`` slice.)
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..core.ring import RoutingTable, hash_id
 from ..core.ringstate import ReplicaView, RingState
+
+
+@dataclass
+class Placement:
+    """Key ownership over a routing table (``repro.runtime.placement.
+    Placement``); a raw ``RingState`` is wrapped, so the membership, the
+    router and the placement read one shared state."""
+
+    table: Union[RoutingTable, RingState]
+
+    def __post_init__(self) -> None:
+        if isinstance(self.table, RingState):
+            self.table = RoutingTable(state=self.table)
+
+    @property
+    def state(self) -> RingState:
+        return self.table.state
+
+    # -- generic key ownership ------------------------------------------------
+    def owner(self, key: str) -> int:
+        return self.table.owner(key)
+
+    def owners(self, keys: Sequence[str]) -> List[int]:
+        return [self.table.owner(k) for k in keys]
+
+    def replica_owners(self, key: str, r: int) -> List[int]:
+        """Successor-list replica group for r-way replicated keys: the
+        owner plus the next r-1 distinct active peers clockwise."""
+        return self.state.replica_set(key, r)
+
+    # -- MoE experts ------------------------------------------------------------
+    def expert_assignment(self, num_experts: int, model_shards: int,
+                          salt: str = "") -> np.ndarray:
+        """(E,) expert -> EP shard, derived from the ring: each expert is
+        hashed onto the ring and lands on its successor member, and the
+        members are binned round-robin into ``model_shards`` groups by
+        ring order.  On a membership change only the experts in the
+        affected arc move."""
+        members = self.table.ids
+        if not members:
+            return np.arange(num_experts) % model_shards
+        shard_of_member = {m: i % model_shards for i, m in enumerate(members)}
+        out = np.empty((num_experts,), np.int64)
+        for e in range(num_experts):
+            m = self.table.successor_of(hash_id(f"expert/{salt}/{e}"))
+            out[e] = shard_of_member[m]
+        return out
+
+    def expert_permutation(self, num_experts: int, model_shards: int,
+                           salt: str = "") -> np.ndarray:
+        """Stable permutation grouping the experts by their shard."""
+        assign = self.expert_assignment(num_experts, model_shards, salt)
+        return np.argsort(assign, kind="stable")
+
+    # -- serving sessions -------------------------------------------------------
+    def session_owner(self, session_id: str) -> int:
+        return self.owner(f"session/{session_id}")
+
+    def balance_stats(self, num_keys: int = 4096) -> Dict[str, float]:
+        """Mean, max and coefficient of variation of the keys a member
+        owns, over ``num_keys`` probe keys."""
+        counts: Dict[int, int] = {}
+        for i in range(num_keys):
+            o = self.owner(f"probe/{i}")
+            counts[o] = counts.get(o, 0) + 1
+        vals = np.array(list(counts.values()), np.float64)
+        return {"mean": float(vals.mean()), "max": float(vals.max()),
+                "cv": float(vals.std() / max(vals.mean(), 1e-9))}
 
 
 # ---------------------------------------------------------------------------

@@ -26,31 +26,40 @@ ServeCluster turns RingState into an end-to-end serve plane:
     replicated on its replica set, so a migration is a cache HANDOFF
     (fetch + tail re-prefill), and prompt-prefix chunks are shared
     across sessions through the ``PrefixCache``.
+  * **Tensor-parallel replica groups** (``tp > 1``): a ring node maps to
+    a group of ``tp`` devices of the pool (``models.tp.TPReplicaGroup``),
+    exports each chunk as one slab a shard (``#s`` block names), and
+    losing any device of a live group (``lose_device``) loses the whole
+    replica, whose sessions then migrate onto healthy groups.
 
 Differences from ``repro``.  Every replica is built on ``device`` (None =
 the CUDA card) and takes its decode attention route from the device, so
 there is no ``decode_kernel=`` switch.  ``_calibrate_route`` times the
-port's bucketed lookup (K2) between two device syncs.  Tensor-parallel
-replica groups (``tp > 1``, ``mesh=``, ``lose_device``) are not ported:
-``tp > 1`` raises, naming ROADMAP queue 1 item 3.  A handoff import or a
-migration admit that fails degrades to recompute or a retry as in
-``repro``, except for a device fault (``backend.DEVICE_FAULTS``), which
-propagates.
+port's bucketed lookup (K2) between two device syncs.  ``mesh=`` is a
+pool of torch devices (entries may repeat; None = eight entries of
+``device``, as ``examples/tp_cluster.py``'s eight host devices), and a
+group's shards run in threads of one process (``models.tp``).  A
+handoff import or a migration admit that fails degrades to recompute or
+a retry as in ``repro``, except for a device fault
+(``backend.DEVICE_FAULTS``), which propagates.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set
+from typing import Any, Dict, List, Optional, Set
 
 import numpy as np
 
 from ..analysis.metering import metered
 from ..core.ringstate import _BUCKET_MIN_N
 from ..dht.data import BlockStore, PrefixCache, pack_array, unpack_array
-from ..kernels.backend import DEVICE_FAULTS, synchronize
+from ..kernels.backend import DEVICE_FAULTS, resolve_device, synchronize
 from ..kernels.ring_lookup.ops import ring_lookup_bucketed
+from ..launch.mesh import replica_groups
 from ..models import Model
+from ..models.tp import TPReplicaGroup, validate_tp
+from ..models.transformer import concat_kv_heads
 from ..runtime import Membership, ReplicaSupervisor
 from ..runtime.placement import PlacementPolicy
 
@@ -136,7 +145,8 @@ class ServeCluster:
     """Cluster-wide serve plane: replicas keyed by ring node, sessions
     migrated on churn, quarantined nodes proxying as gateways.
     ``device=None`` builds every replica on the CUDA card (raises without
-    one); pass ``device="cpu"`` to serve on the host."""
+    one); pass ``device="cpu"`` to serve on the host.  With ``tp > 1``
+    the replicas run on tensor-parallel groups carved from ``mesh``."""
 
     def __init__(self, membership: Membership, model: Model, params, *,
                  slots: int = 8, max_len: int = 64, replication: int = 2,
@@ -146,13 +156,9 @@ class ServeCluster:
                  kv_blocks: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None,
                  block_store: Optional[BlockStore] = None,
-                 tp: int = 1,
+                 tp: int = 1, mesh=None,
                  policy: Optional[PlacementPolicy] = None,
                  device=None):
-        if int(tp) != 1:
-            raise NotImplementedError("tensor-parallel replica groups "
-                                      "(tp > 1) are not ported yet: ROADMAP "
-                                      "queue 1, item 3")
         self.membership = membership
         self.state = membership.ring_state
         # every placement decision in the serve plane — admission spill,
@@ -183,6 +189,26 @@ class ServeCluster:
         self.fused = fused
         self.router = SessionRouter(membership)
         self.supervisor = ReplicaSupervisor(membership)
+        # tensor-parallel replica groups: with tp > 1 a ring node maps to
+        # a group of devices (models.tp.TPReplicaGroup), not a device.
+        # The pool ``mesh`` (torch devices, entries may repeat; None =
+        # eight entries of the cluster's device) is carved into
+        # len(pool)/tp groups; a node acquires a group when its replica
+        # is created and releases it when the replica dies.  Groups
+        # outnumbered by ring nodes are shared deterministically.
+        self.tp = int(tp)
+        self._group_devices: List[Any] = []
+        self._group_objs: Dict[int, TPReplicaGroup] = {}
+        self._group_params: Dict[int, Any] = {}   # gi -> sharded params
+        self._node_group: Dict[int, int] = {}
+        self._free_groups: List[int] = []
+        self._dead_groups: Set[int] = set()
+        if self.tp > 1:
+            validate_tp(self.model.cfg, self.tp)
+            pool = mesh if mesh is not None else [resolve_device(device)] * 8
+            self._group_devices = replica_groups(pool, self.tp)
+            self._free_groups = list(
+                range(len(self._group_devices) - 1, -1, -1))
         # prefix-cache-aware admission: node -> content-addresses of the
         # prefix chunks that node has computed or imported (warm = no
         # fetch needed in a real placement); ``submit`` prefers a warm
@@ -257,23 +283,108 @@ class ServeCluster:
     def _replica_for(self, node: int) -> Replica:
         rep = self._live_replica(node)
         if rep is None:
+            group, params = None, self.params
+            if self.tp > 1:
+                gi = self._acquire_group(node)
+                group = self._group_obj(gi)
+                params = self._params_for(gi)
             rep = Replica(self.model, slots=self.slots, max_len=self.max_len,
                           generation=self.supervisor.stamp(),
                           prefill_chunk=self.prefill_chunk,
-                          prefix_cache=self.prefix, device=self.device)
-            rep.attach_params(self.params)
+                          prefix_cache=self.prefix, device=self.device,
+                          group=group)
+            rep.attach_params(params)
             self.replicas[node] = rep
+            if group is not None:
+                self.supervisor.register_group(node, group.device_ids())
         return rep
 
     def _has_capacity(self, node: int) -> bool:
         rep = self._live_replica(node)
         if rep is not None:
             return rep.num_free > 0
-        return self.slots > 0
+        if self.slots <= 0:
+            return False
+        # a fresh replica additionally needs a live device group
+        return self.tp == 1 or \
+            len(self._dead_groups) < len(self._group_devices)
+
+    # -- device-group pool (tp > 1) -----------------------------------------
+    def _group_obj(self, gi: int) -> TPReplicaGroup:
+        g = self._group_objs.get(gi)
+        if g is None:
+            g = TPReplicaGroup(self.model, self._group_devices[gi])
+            self._group_objs[gi] = g
+        return g
+
+    def _params_for(self, gi: int):
+        p = self._group_params.get(gi)
+        if p is None:
+            p = self._group_obj(gi).shard_params(self.params)
+            self._group_params[gi] = p
+        return p
+
+    def _acquire_group(self, node: int) -> int:
+        gi = self._node_group.get(node)
+        if gi is not None and gi not in self._dead_groups:
+            return gi
+        while self._free_groups and \
+                self._free_groups[-1] in self._dead_groups:
+            self._free_groups.pop()
+        if self._free_groups:
+            gi = self._free_groups.pop()
+        else:
+            live = [i for i in range(len(self._group_devices))
+                    if i not in self._dead_groups]
+            if not live:
+                raise RuntimeError("no live device group for a new replica")
+            gi = live[node % len(live)]    # oversubscribed: share a group
+        self._node_group[node] = gi
+        return gi
+
+    def _release_group(self, node: int) -> None:
+        gi = self._node_group.pop(node, None)
+        if gi is None or gi in self._dead_groups:
+            return
+        if gi not in self._node_group.values() \
+                and gi not in self._free_groups:
+            self._free_groups.append(gi)
 
     def _forget_node(self, node: int) -> None:
-        """A node's replica is gone: drop its warm-prefix residency."""
+        """A node's replica is gone: return its device group to the pool
+        (unless the group died) and drop its warm-prefix residency."""
+        self.supervisor.release_group(node)
+        self._release_group(node)
         self._warm_prefixes.pop(node, None)
+
+    def lose_device(self, device_id: int) -> Optional[int]:
+        """Partial-group loss: any device of a replica group failing loses
+        the whole replica (its weight shards and KV slices are useless
+        without their siblings).  The owning group is marked dead FIRST —
+        the membership event releases groups back to the pool at once,
+        and a dead group must never host a fresh replica — then the
+        owning ring node ``fail()``s, driving the normal generation bump
+        and migration onto healthy groups.  ``device_id`` is the device's
+        index in the pool.  Returns the failed node id (None if the
+        device backs no group)."""
+        node = self.supervisor.group_owner(device_id)
+        if node is None:
+            return None
+        gi = self._node_group.get(node)
+        if gi is not None:
+            self._dead_groups.add(gi)
+            # the dead group's shards are gone with it
+            self._group_params.pop(gi, None)
+        failed = self.supervisor.device_lost(device_id)
+        if gi is not None:
+            # oversubscribed topologies: every other node sharing the
+            # dead group lost its devices too
+            members = set(self.membership.members())
+            for other, g in list(self._node_group.items()):
+                if g == gi and other != failed and other in members:
+                    self.supervisor.release_group(other)
+                    self.membership.fail(other)
+        return failed
 
     def _session_resident(self, rec: "SessionRecord") -> bool:
         """Does the session's slot actually exist on its recorded owner?
@@ -396,10 +507,12 @@ class ServeCluster:
 
     # -- KV data plane (DESIGN.md §11) ----------------------------------------
     @staticmethod
-    def _block_name(session_id: str, j: int) -> str:
-        """Store name of chunk ``j`` (``repro``'s name for shard 0: one
-        card holds every kv head)."""
-        return f"kv/{session_id}/{j}"
+    def _block_name(session_id: str, j: int, shard: int = 0) -> str:
+        """Store name of chunk ``j``: shard 0 keeps the plain name (a tp=1
+        store is the same as without groups), shard s > 0 of a TP group's
+        per-shard export lands under a ``#s`` suffix."""
+        base = f"kv/{session_id}/{j}"
+        return base if shard == 0 else f"{base}#{shard}"
 
     def _export_session(self, rec: SessionRecord) -> None:
         """Ship every newly completed KV chunk of the session's live
@@ -417,13 +530,16 @@ class ServeCluster:
         c = self.prefill_chunk
         full = int(rep.lengths[slot]) // c
         for j in range(rec.exported_chunks, full):
-            # placed AT the session's ring key, not the block-name hash:
+            # per-shard export: each shard of a TP group ships only its
+            # kv-head slice (one slab for single-device replicas).
+            # Placed AT the session's ring key, not the block-name hash:
             # the session and its blocks share ONE replica set, so the
             # migration target the policy picks already holds the
             # handoff blocks locally
-            self.blocks.put(self._block_name(rec.session_id, j),
-                            pack_array(rep.export_block(rec.session_id, j)),
-                            at=rec.key)
+            for s_i, slab in enumerate(
+                    rep.export_block_shards(rec.session_id, j)):
+                self.blocks.put(self._block_name(rec.session_id, j, s_i),
+                                pack_array(slab), at=rec.key)
             self.exported_blocks += 1
         rec.exported_chunks = max(rec.exported_chunks, full)
 
@@ -433,20 +549,41 @@ class ServeCluster:
         all-position logits carry the admit token)."""
         c = self.prefill_chunk
         cap = max(((s - 1) // c) * c, 0)
+        hkv = self.model.cfg.num_kv_heads
         blocks: List[np.ndarray] = []
         while (len(blocks) + 1) * c <= cap:
             data = self.blocks.get(self._block_name(rec.session_id,
                                                     len(blocks)))
             if data is None:
                 break
-            blocks.append(unpack_array(data))
+            slab0 = unpack_array(data)
+            # shard 0's local head count names the donor's shard fan-out
+            # (self-describing: a tp=4 donor's chunks reassemble on a tp=2
+            # or tp=1 consumer and back); ANY missing sibling shard makes
+            # the whole chunk a miss, so a torn export degrades to
+            # recompute, never to wrong KV
+            if slab0.ndim != 5 or slab0.shape[3] == 0 \
+                    or hkv % slab0.shape[3]:
+                break
+            shards = [slab0]
+            for s_i in range(1, hkv // slab0.shape[3]):
+                d2 = self.blocks.get(self._block_name(rec.session_id,
+                                                      len(blocks), s_i))
+                if d2 is None:
+                    shards = None
+                    break
+                shards.append(unpack_array(d2))
+            if shards is None:
+                break
+            blocks.append(concat_kv_heads(shards))
         return blocks
 
     def _drop_session_blocks(self, rec: SessionRecord) -> None:
         if self.blocks is None:
             return
         for j in range(rec.exported_chunks):
-            self.blocks.remove(self._block_name(rec.session_id, j))
+            for s_i in range(max(self.tp, 1)):
+                self.blocks.remove(self._block_name(rec.session_id, j, s_i))
         rec.exported_chunks = 0
 
     def _push_token(self, rec: SessionRecord, tok: int) -> None:
@@ -856,6 +993,12 @@ class ServeCluster:
             out.update({
                 "cross_region_admits": self.cross_region_admits,
                 "cross_region_migrations": self.cross_region_migrations,
+            })
+        if self.tp > 1:
+            out.update({
+                "tp": self.tp,
+                "groups": len(self._group_devices),
+                "dead_groups": len(self._dead_groups),
             })
         if self.blocks is not None:
             out.update({

@@ -25,8 +25,14 @@ is updated in place (no functional copy), out-of-range gather rows are
 clamped and zeroed explicitly, and only the real rows are scattered back
 (torch's index ops raise where JAX fills or drops).  A failed overlapped
 prefill is recorded in ``failed_prefills`` unless the failure is the
-device's (``backend.DEVICE_FAULTS``), which propagates.  Tensor-parallel
-groups come with ROADMAP queue 1, item 3.
+device's (``backend.DEVICE_FAULTS``), which propagates.
+
+A replica built on a tensor-parallel group (``group=``, a
+``models.tp.TPReplicaGroup``) holds one cache and one parameter tree a
+shard, runs every forward, slot write and decode round on the group's
+shard threads, joins the shards' vocab slices and takes the greedy pick
+here, and runs no fused route (the ring lookup stays host-side for
+groups, as in ``repro``).
 """
 from __future__ import annotations
 
@@ -111,6 +117,41 @@ def _words(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
 
+def _write_row(cache: Dict[str, torch.Tensor], one: Dict[str, torch.Tensor],
+               slot: int) -> None:
+    for name, dst in cache.items():
+        dst[:, slot] = one[name][:, 0]
+
+
+def _decode_rows(model: Model, params, cache: Dict[str, torch.Tensor],
+                 tokens: np.ndarray, lengths: np.ndarray,
+                 idx: Optional[np.ndarray], n: int, lockstep: Optional[int],
+                 dev: torch.device) -> torch.Tensor:
+    """One decode step of a replica's slab on ``dev``, in place: every row
+    when ``idx`` is None, else the rows ``idx`` (the first ``n`` real,
+    the rest padding that reads zeros and is never written back).
+    Returns the (rows, V) logits."""
+    tok = torch.from_numpy(tokens).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    if idx is None:
+        logits, _ = model.decode_step(params, cache, tok,
+                                      ln if lockstep is None else lockstep)
+        return logits
+    at = torch.from_numpy(idx).to(dev)
+    sub = {name: c.index_select(1, at) for name, c in cache.items()}
+    tok, ln = tok[at], ln[at]
+    for t in sub.values():
+        t[:, n:] = 0
+    tok[n:] = 0
+    ln[n:] = 0
+    logits, sub = model.decode_step(params, sub, tok,
+                                    ln if lockstep is None else lockstep)
+    real = at[:n]
+    for name, c in cache.items():
+        c.index_copy_(1, real, sub[name][:, :n])
+    return logits
+
+
 class Replica:
     """One serving replica: a slab of continuous-batching decode slots.
 
@@ -122,23 +163,30 @@ class Replica:
     the host.  ``generation`` is the membership generation the replica
     was created at; ``prefix_cache`` a ``dht.data.PrefixCache`` that
     chunked prefills consult and feed (families with KV blocks only).
+    ``group`` is a ``models.tp.TPReplicaGroup``: the replica then lives
+    on the group's devices (``device`` is ignored) and ``attach_params``
+    takes the group's shard list (``group.shard_params``).
     """
 
     def __init__(self, model: Model, *, slots: int, max_len: int,
                  generation: int = 0, prefill_chunk: Optional[int] = None,
-                 prefix_cache=None, device=None):
+                 prefix_cache=None, device=None, group=None):
         self.model = model
         self.slots = slots
         self.max_len = max_len
         self.generation = generation
-        self.device = resolve_device(device)
+        self.group = group
+        # the forward's owner: the group's shards, or the model on device
+        self._fwd = model if group is None else group
+        self.device = resolve_device(device) if group is None \
+            else group.devices[0]
         if self.device.type == "cuda":
             strict_fp32()
         self.prefix_cache = prefix_cache if model.supports_kv_blocks else None
         # wall time the last admit_from_blocks spent importing blocks
         # (the cluster splits handoff transfer from re-prefill with it)
         self.import_us = 0.0
-        self.cache = model.init_cache(slots, max_len, device=self.device)
+        self.cache = self._init_cache(slots)
         self.lengths = np.zeros((slots,), np.int32)
         self.tokens = np.zeros((slots, 1), np.int32)
         self.active = np.zeros((slots,), bool)
@@ -172,8 +220,18 @@ class Replica:
     def attach_params(self, params) -> None:
         self.params = params
 
+    def _init_cache(self, batch: int):
+        if self.group is not None:
+            return self.group.init_cache(batch, self.max_len)
+        return self.model.init_cache(batch, self.max_len, device=self.device)
+
     def _fresh_cache(self):
-        return self.model.init_cache(1, self.max_len, device=self.device)
+        return self._init_cache(1)
+
+    def _sync(self) -> None:
+        for dev in (self.group.devices if self.group is not None
+                    else (self.device,)):
+            synchronize(dev)
 
     def _cache_with_blocks(self, blocks):
         """A one-row cache holding ``blocks`` from position 0; each block
@@ -183,6 +241,8 @@ class Replica:
                for b in blocks):
             raise ValueError("a KV block does not cover one prefill chunk "
                              f"of {self.prefill_chunk} positions")
+        if self.group is not None:
+            return self.group.cache_with_blocks(self.max_len, blocks)
         return self.model.cache_with_blocks(self.max_len, blocks,
                                             device=self.device)
 
@@ -215,7 +275,7 @@ class Replica:
             else:
                 prompt = torch.from_numpy(np.asarray(req.prompt, np.int32))
                 batch = {"tokens": prompt.to(self.device)[None, :]}
-                logits, one = self.model.prefill(self.params, batch, one)
+                logits, one = self._fwd.prefill(self.params, batch, one)
                 tok = int(torch.argmax(logits[0]))
             self._write_slot(one, slot)
             self._commit_slot(req.session_id, slot, s, tok)
@@ -259,11 +319,11 @@ class Replica:
         buf[:s] = prompt
         logits = None
         for off in range(start, padded, c):
-            logits, one = self.model.prefill_chunk(
+            logits, one = self._fwd.prefill_chunk(
                 self.params, self._segment(buf, off), one, off)
             if self.prefix_cache is not None and off + c <= s:
                 self.prefix_cache.insert(
-                    prompt, off, self.model.export_kv_block(one, 0, off, c))
+                    prompt, off, self._fwd.export_kv_block(one, 0, off, c))
         # the prompt's last real token sits at column (s-1) - (padded-c)
         # of the final (right-padded) segment's all-position logits
         tok = int(torch.argmax(logits[0, (s - 1) - (padded - c)]))
@@ -299,10 +359,10 @@ class Replica:
         else:
             raise RuntimeError("replica full")
         try:
-            synchronize(self.device)
+            self._sync()
             t0 = time.perf_counter_ns()
             one = self._cache_with_blocks(blocks)
-            synchronize(self.device)
+            self._sync()
             self.import_us = (time.perf_counter_ns() - t0) / 1e3
             tok, one = self._run_chunks(req.prompt, one, start=covered)
             self._write_slot(one, slot)
@@ -319,14 +379,19 @@ class Replica:
         (positions [j*chunk, (j+1)*chunk); the caller guarantees the
         session's length has crossed that boundary)."""
         c = self.prefill_chunk
-        return self.model.export_kv_block(self.cache, self.sessions[session_id],
-                                          j * c, c)
+        return self._fwd.export_kv_block(self.cache, self.sessions[session_id],
+                                         j * c, c)
 
     def export_block_shards(self, session_id: str, j: int) -> List[np.ndarray]:
-        """Chunk ``j`` as per-shard slabs: one card holds every kv head,
-        so a one-element list (tensor-parallel shards: ROADMAP queue 1,
-        item 3)."""
-        return [self.export_block(session_id, j)]
+        """Chunk ``j`` as per-shard slabs — shard s is the kv-head slice
+        shard s of the replica group holds (a one-element list for a
+        single-device replica), each storable on its own so a group
+        export never gathers the full slab onto one device."""
+        if self.group is None:
+            return [self.export_block(session_id, j)]
+        c = self.prefill_chunk
+        return self.group.export_kv_shards(
+            self.cache, self.sessions[session_id], j * c, c)
 
     def _commit_slot(self, session_id: str, slot: int, s: int,
                      tok: int) -> None:
@@ -389,7 +454,7 @@ class Replica:
                 c = self.prefill_chunk
                 for _ in range(chunks):
                     off = st["off"]
-                    st["logits"], st["cache"] = self.model.prefill_chunk(
+                    st["logits"], st["cache"] = self._fwd.prefill_chunk(
                         self.params, self._segment(st["prompt"], off),
                         st["cache"], off)
                     st["off"] = off + c
@@ -414,8 +479,11 @@ class Replica:
         return done
 
     def _write_slot(self, one_cache, slot: int) -> None:
-        for name, dst in self.cache.items():
-            dst[:, slot] = one_cache[name][:, 0]
+        if self.group is None:
+            _write_row(self.cache, one_cache, slot)
+        else:
+            self.group.map(lambda i: _write_row(self.cache[i], one_cache[i],
+                                                slot))
 
     def decode_round(self, route=None) -> Dict[str, int]:
         """One decode step for all active sessions — each at its own
@@ -430,6 +498,8 @@ class Replica:
         ``routed_owners`` (sid -> uint64 peer id).  One host read per
         round either way: the B tokens (and the owner words)."""
         self.routed_owners = {}
+        if self.group is not None:
+            route = None     # the ring lookup stays host-side for groups
         if not self.sessions:
             return {}
         act_idx = np.nonzero(self.active)[0]
@@ -437,51 +507,40 @@ class Replica:
             raise RuntimeError(f"a session reached max_len {self.max_len}")
         n = act_idx.size
         bucket = _decode_bucket(n, self.slots)
-        dev = self.device
-        tokens = torch.from_numpy(self.tokens).to(dev)
-        lengths = torch.from_numpy(self.lengths).to(dev)
-        key_hi = _words(self.key_hi).to(dev)
-        key_lo = _words(self.key_lo).to(dev)
         # lockstep families (SSM, hybrid) step every row at the longest
         # active session's length, as repro's ``_index``; padding rows
         # keep state 0 and are dropped on the way back
         lockstep = None if self.model.supports_per_slot_decode \
             else int(self.lengths[act_idx].max())
-        owners = None
-        if bucket == self.slots:
-            # full house: the gather would be the identity — step the
-            # slab in place (inactive rows decode garbage at position 0,
-            # as repro's full-house round does; admit rewrites the slot)
-            if route is not None:
-                owners = ring_lookup_bucketed(key_hi, key_lo, *route)
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache, tokens,
-                lengths if lockstep is None else lockstep)
-            rows = act_idx
-        else:
-            # clamp the padding rows' index to a real slot, then zero
-            # what they gathered: they decode at position 0 and are
-            # dropped on the way back
+        # full house: the gather would be the identity — step the slab in
+        # place (inactive rows decode garbage at position 0, as repro's
+        # full-house round does; admit rewrites the slot).  Otherwise the
+        # padding rows' index is clamped to a real slot and what they
+        # gathered is zeroed: they decode at position 0 and are dropped
+        idx = None
+        if bucket < self.slots:
             idx = np.full(bucket, self.slots - 1, np.int64)
             idx[:n] = act_idx
-            at = torch.from_numpy(idx).to(dev)
+        owners = None
+        if self.group is not None:
+            g = self.group
+            logits = g.join_logits(g.map(lambda i: _decode_rows(
+                g.local_model, self.params[i], self.cache[i], self.tokens,
+                self.lengths, idx, n, lockstep, g.devices[i])))
+        else:
             if route is not None:
-                qhi, qlo = key_hi[at], key_lo[at]
-                qhi[n:] = 0
-                qlo[n:] = 0
-                owners = ring_lookup_bucketed(qhi, qlo, *route)
-            sub = {name: c.index_select(1, at) for name, c in self.cache.items()}
-            tok, ln = tokens[at], lengths[at]
-            for t in sub.values():
-                t[:, n:] = 0
-            tok[n:] = 0
-            ln[n:] = 0
-            logits, sub = self.model.decode_step(
-                self.params, sub, tok, ln if lockstep is None else lockstep)
-            real = at[:n]
-            for name, c in self.cache.items():
-                c.index_copy_(1, real, sub[name][:, :n])
-            rows = np.arange(n)
+                key_hi = _words(self.key_hi).to(self.device)
+                key_lo = _words(self.key_lo).to(self.device)
+                if idx is not None:
+                    at = torch.from_numpy(idx).to(self.device)
+                    key_hi, key_lo = key_hi[at], key_lo[at]
+                    key_hi[n:] = 0
+                    key_lo[n:] = 0
+                owners = ring_lookup_bucketed(key_hi, key_lo, *route)
+            logits = _decode_rows(self.model, self.params, self.cache,
+                                  self.tokens, self.lengths, idx, n,
+                                  lockstep, self.device)
+        rows = act_idx if idx is None else np.arange(n)
         picked = torch.argmax(logits, dim=-1).to(torch.int32)
         row_of = {int(s): int(r) for s, r in zip(act_idx, rows)}
         if owners is not None:

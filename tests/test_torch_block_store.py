@@ -480,8 +480,9 @@ def test_kv_blocks_where_repro_has_them(arch):
 
 def test_block_export_and_import_match_repro_byte_for_byte():
     """The same float32 cache contents on both packages: every export
-    (one chunk, one shard) is byte-equal to repro's, and an import writes
-    repro's rows; more than one shard waits for the TP slice."""
+    (one chunk, one shard, two shards on the kv-head axis) is
+    byte-equal to repro's, a shard count that does not divide kv_heads
+    raises repro's error, and an import writes repro's rows."""
     import jax.numpy as jnp
     from repro_torch.models import transformer
     cfg = get_smoke_config("qwen2.5-3b").with_overrides(dtype="float32")
@@ -501,8 +502,14 @@ def test_block_export_and_import_match_repro_byte_for_byte():
         (jshard,) = jtransformer.export_kv_block_shards(jcfg, jcache, row,
                                                         off, 8, 1)
         assert shard.tobytes() == jshard.tobytes() == got.tobytes()
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        transformer.export_kv_block_shards(cfg, cache, 0, 0, 8, 2)
+        halves = transformer.export_kv_block_shards(cfg, cache, row, off,
+                                                    8, 2)
+        jhalves = jtransformer.export_kv_block_shards(jcfg, jcache, row,
+                                                      off, 8, 2)
+        assert [h.tobytes() for h in halves] == \
+            [h.tobytes() for h in jhalves]
+    with pytest.raises(ValueError, match="shards=3 must divide kv_heads=2"):
+        transformer.export_kv_block_shards(cfg, cache, 0, 0, 8, 3)
     block = jtransformer.export_kv_block(jcfg, jcache, 1, 16, 8)
     jout = jtransformer.import_kv_block(jcfg, jcache, 0, 8, block)
     out = transformer.import_kv_block(cfg, cache, 0, 8, np.asarray(block))

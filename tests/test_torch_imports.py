@@ -39,8 +39,15 @@ for i, script in enumerate(sys.argv[1:]):      # the chip scripts
 bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
        or m == "repro" or m.startswith("repro.") or m.startswith("jax.")]
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
+
+# the modules of the tensor-parallel and dht_cluster slice
+NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
+               "repro_torch.launch.mesh", "repro_torch.models.tp",
+               "repro_torch.runtime.elastic", "repro_torch.sharding.specs",
+               "repro_torch.tp_cluster")
 
 
 def _env(**extra):
@@ -56,8 +63,11 @@ def test_port_imports_neither_jax_nor_repro():
          str(REPO / "chip_profile.py"), str(REPO / "chip_kernel_steps.py")],
         env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    # every module was walked: 63 since the hybrid and MoE configs
-    assert int(res.stdout.split()[-1]) >= 63
+    # every module was walked: 63 since the hybrid and MoE configs, 72
+    # since the tensor-parallel slice, and the new modules among them
+    assert int(res.stdout.split()[-1]) >= 72
+    walked = set(res.stdout.splitlines()[-2].split())
+    assert set(NEW_MODULES) <= walked
 
 
 def test_chip_scripts_import_neither_jax_nor_repro_anywhere():

@@ -13,7 +13,8 @@ The deliberate differences of this slice, each pinned here: a bfloat16
 handoff counts as a handoff on the port (repro's KVB1 header cannot
 carry bfloat16, so its handoff is a miss); a device fault inside an
 overlapped prefill or a block import propagates instead of degrading to
-recompute; ``tp > 1`` raises; there is no ``decode_kernel=`` argument.
+recompute; there is no ``decode_kernel=`` argument (tensor-parallel
+groups: ``test_torch_tp.py``).
 """
 import inspect
 import os
@@ -739,19 +740,23 @@ def test_device_fault_in_a_block_import_propagates(pair, fault, monkeypatch):
 
 
 def test_tp_and_decode_kernel_are_not_arguments(pair):
-    """Differences (c) and (d): ``tp > 1`` raises and names ROADMAP queue
-    1 item 3; there is no ``decode_kernel=`` switch (the device picks
-    K3's route)."""
+    """Difference (d): there is no ``decode_kernel=`` switch (the device
+    picks K3's route).  ``tp`` and ``mesh`` are arguments since the
+    tensor-parallel slice (difference (c) is gone): ``tp=2`` builds
+    groups of two entries of the pool, and a ``tp`` that does not divide
+    the pool raises repro's error."""
     _, port = pair
     t = [0.0]
     m = _membership(port, 2, t)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        _cluster(port, m, tp=2)
+    cl = _cluster(port, m, tp=2)
+    assert cl.stats()["tp"] == 2 and cl.stats()["groups"] == 4
+    with pytest.raises(ValueError, match="divide the 5 pooled device"):
+        _cluster(port, m, tp=2, mesh=["cpu"] * 5)
     params = inspect.signature(serve.ServeCluster).parameters
-    assert "decode_kernel" not in params and "mesh" not in params
+    assert "decode_kernel" not in params and "mesh" in params
     with pytest.raises(TypeError):
         _cluster(port, m, decode_kernel=True)
-    assert not hasattr(serve.ServeCluster, "lose_device")
+    assert hasattr(serve.ServeCluster, "lose_device")
 
 
 # ---------------------------------------------------------------------------
