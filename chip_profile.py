@@ -43,7 +43,13 @@ time of the kernels launched inside those labels; a label with no device
 time fails the run.  Then one D1HT ``simulate_churn`` of the §VII churn cell
 (n = 10^6, s_avg = 174 min, 1800 s window after 300 s, seed 1), after
 one warm-up run: its host-side event stream (also timed alone) and
-draws, K4 (the window reports its share) and the device metering.  Prints
+draws, K4 (the window reports its share) and the device metering.  Then
+one training step of qwen2.5-3b at full size (bf16, remat full, AdamW, B 8
+x S 1024 of ``SyntheticLM``), after a warm-up step: the shares of K5 (its
+forward and remat recompute, ``flash_tc_kernel``), of K5b (its
+``bwd_delta``, ``bwd_dkdv`` and ``bwd_dq`` kernels) and of the f32 logits'
+forward (``layers.logits_fn`` under the label ``logits_f32``; their
+backward runs outside it).  Prints
 one JSON line per window: host wall time, device busy time (the union
 of the kernels' intervals), the idle share, and the ops with the most
 device time.  Needs a CUDA card; imports no jax.
@@ -102,7 +108,7 @@ def _labelled(module, label: str, *names: str):
 
 
 def _window(label: str, fn, steps: int, share_of: str = "",
-            labels=(), **extra) -> None:
+            labels=(), shares=None, **extra) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -123,6 +129,13 @@ def _window(label: str, fn, steps: int, share_of: str = "",
                  if share_of in r.key) / 1e3 / steps
         extra["share"] = {"ops_matching": share_of, "device_ms": ms,
                           "of_busy": ms * steps / busy if busy else None}
+    for name, kernels in (shares or {}).items():   # kernels by name
+        ms = sum(r.self_device_time_total for r in rows
+                 if any(k in r.key for k in kernels)) / 1e3 / steps
+        if not ms > 0:
+            raise AssertionError(f"{label}: no device time in {kernels}")
+        extra.setdefault("kernel_shares", {})[name] = {
+            "device_ms": ms, "of_busy": ms * steps / busy if busy else None}
     for name in labels:     # the kernels launched inside these labels
         ms = sum(e.device_time_total for e in prof.events()
                  if e.name == name and e.device_type.name == "CPU") \
@@ -148,11 +161,14 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.churn import ChurnConfig
     from repro_torch.core.sim import _churn_event_stream, simulate_churn
+    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels.backend import nvidia_smi_line
     from repro_torch.models import Model
     from repro_torch.models import layers, ssm
+    from repro_torch.optim import adamw
     from repro_torch.runtime import Membership
     from repro_torch.serve import Replica, Request
+    from repro_torch.train import TrainConfig, make_train_step
 
     dev = torch.device("cuda", 0)
     print(nvidia_smi_line(), flush=True)
@@ -337,6 +353,25 @@ def main() -> int:
     stream_ms = (time.perf_counter() - t0) * 1e3
     _window("churn_d1ht_n1e6", lambda: simulate_churn(cell, device=dev), 1,
             share_of="edra_tree", host_event_stream_ms=stream_ms)
+
+    cfg = get_config("qwen2.5-3b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt_cfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, total_steps=1000)
+    state = {"params": params, "opt": adamw.init_state(params, opt_cfg)}
+    train_step = make_train_step(model, TrainConfig(opt=opt_cfg))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0)).batch(0).items()}
+
+    def train():
+        state["params"], state["opt"], _ = train_step(state["params"],
+                                                      state["opt"], batch)
+    train()                              # warm-up
+    with _labelled(layers, "logits_f32", "logits_fn"):
+        _window("train_step_qwen", train, 1, labels=("logits_f32",), shares={
+            "K5": ("flash_tc_kernel<",),
+            "K5b": ("bwd_delta_kernel<", "bwd_dkdv_tc_kernel<",
+                    "bwd_dq_tc_kernel<")})
     return 0
 
 

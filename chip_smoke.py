@@ -16,7 +16,16 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            Sq != Sk, and f32; zamba2-7b's shared-block admit, 32 / 32 heads
            at hd 112, in bf16 and fp16; each case's route, tensor cores or
            SIMT, is checked against ``kernel.route``; qwen2.5-3b's admit on
-           one shard of tp = 2, 8 / 1 heads) and K6 (ssm_scan at a
+           one shard of tp = 2, 8 / 1 heads), K5 with the rows' logsumexp
+           (the training forward; lse within 1e-4 of the plain one, its
+           output equal to the serve path's) and K5b (the flash backward,
+           csrc/flash_attention_bwd.cu: qwen2.5-3b's training shape, B 8,
+           S 1024, 16/2 heads of hd 128, causal, in bf16, fp16 and f32, and
+           lm-100m's, B 8, S 256, 12/4 of hd 64, in bf16; max |d| / max
+           |ref| per gradient within 2e-2, 5e-3 and 1e-4; each case's route
+           checked against ``kernel.bwd_route``; timed in turns with SDPA's
+           backward pinned to its fastest backend; the bound is its five
+           products over the causal pairs) and K6 (ssm_scan at a
            falcon-mamba-7b admit's shape on random f32 inputs) at the main
            path's shapes, each held against its plain PyTorch version on
            the same inputs (K1/K2 exactly, also K2 at the fused round's 32
@@ -185,6 +194,29 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            3 live replicas, the blocks' owners from one K1 lookup on the
            card equal to the host's.
 
+  train    qwen2.5-3b at full size training (36 layers, bf16, remat
+           full, random weights from the seed): B 8 x S 1024 of
+           ``SyntheticLM``, one warm-up and 5 timed ``make_train_step``
+           steps with AdamW on one repeated batch.  Gates: loss and grad
+           norm finite and the last loss below the first; K5 72 launches a
+           step (forward and remat recompute) and K5b 36 (one call a layer,
+           each three kernel launches: D, dK/dV, dQ), all tensor-core, the
+           counters zeroed before the first step; at full width and 2
+           layers, one step's loss within 1e-2 relative and each leaf's
+           gradient within 5e-2 of max |g| of the same step with
+           ``FlashAttentionFn`` on the plain versions.  Printed: ms a step,
+           tokens/s, the share of the bf16 dense peak that 6 N tokens a
+           step reads, peak memory, and K5's and K5b's device ms a step
+           (torch.profiler over one more step);
+  train_lm the ``train_lm`` twin's lm-100m (12 x 768, 32k vocabulary)
+           through ``Trainer``: B 8 x S 256, 60 steps, a checkpoint every
+           20 into the gitignored ``build/``, a ``Membership`` peer failed
+           during step 30.  Gates: the run restores step 20 and finishes at
+           60, the restored params and moments equal what step 20 saved,
+           bit for bit, the last logged loss below the first, K5 and K5b
+           12 tensor-core launches a step run (70), and the checkpoint
+           directory removed at the end.
+
 Then the kernel summary line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0.  Without a CUDA
 card, or without the package beside it, it exits 1 and prints no result.
@@ -288,6 +320,30 @@ K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
 # repro's (tests/test_kernels.py) for bf16 and f32; fp16, whose mantissa
 # is 3 bits finer, 2.5e-3 (H100 80GB HBM3, 700 W: 9.8e-4 at every fp16 case)
 K5_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 2e-5}
+# K5b (the flash backward): (B, S, dtype) causal at qwen2.5-3b's training
+# shape in three types and at lm-100m's heads (the train_lm twin); the
+# tolerance is max |d| / max |ref| per gradient (P and dS enter the
+# tensor cores' products rounded to the input type, FA2's recipe)
+LM100M_HEADS = (12, 4, 64)
+K5B_CASES = [((8, 1024, "bfloat16"), QWEN_HEADS),
+             ((8, 1024, "float16"), QWEN_HEADS),
+             ((8, 1024, "float32"), QWEN_HEADS),
+             ((8, 256, "bfloat16"), LM100M_HEADS)]
+K5B_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
+K5_LSE_ATOL = 1e-4                 # K5's logsumexp (f32) against the plain one
+K5B_KERNELS = ("bwd_delta_kernel<", "bwd_dkdv_tc_kernel<", "bwd_dq_tc_kernel<",
+               "bwd_dkdv_simt_kernel<", "bwd_dq_simt_kernel<")
+# train: qwen2.5-3b at full size, B 8 x S 1024 of SyntheticLM, one warm-up
+# step and TRAIN_STEPS timed ones on one repeated batch; the gate at full
+# width and TRAIN_GATE_LAYERS layers holds one step's loss and gradients
+# with the kernels to those with FlashAttentionFn on the plain versions
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+TRAIN_GATE_LAYERS = 2
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_BOUND = 5e-2            # max |d| / max |plain| per leaf (bf16)
+# train_lm: the twin's lm-100m at B 8 x S 256 for 60 steps, a checkpoint
+# every 20, a peer failed during step 30 (the run restores step 20)
+TRAIN_LM = dict(batch=8, seq=256, steps=60, save_every=20, fail_at=30)
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
 K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
 K6_Y_REL = 1e-2                    # bf16 y: of max |y|
@@ -451,6 +507,51 @@ def sdpa_in_turns(kernel, sdpa_call) -> dict:
                 "ms", "library_ms", "kernel_over_library", "ratio_min_max")}}
 
 
+def sdpa_backward_in_turns(kernel, q, k, v, do) -> dict:
+    """``in_turns`` of a flash backward against SDPA's backward on the same
+    (B, S, heads, hd) inputs (causal, ``enable_gqa``), pinned to its
+    fastest backend: each backend's forward runs once outside any timing,
+    a library call is one ``autograd.grad`` through that graph, and the
+    backends are read in turns (5 rounds, the CUDA-event mean of 10 calls)
+    before the pinned one goes in turns with the kernel."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    graphs = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        try:
+            with sdpa_kernel(backend):
+                out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+            torch.autograd.grad(out, leaves, dot, retain_graph=True)
+        except RuntimeError:
+            continue
+        graphs[backend] = (out, leaves)
+    torch.cuda.synchronize()
+
+    def backward(backend):
+        out, leaves = graphs[backend]
+        return lambda i: torch.autograd.grad(out, leaves, dot,
+                                             retain_graph=True)
+    readings = {b: [] for b in graphs}
+    for r in range(5):
+        for b in (list(graphs) if r % 2 == 0 else list(graphs)[::-1]):
+            readings[b].append(cuda_ms(backward(b), iters=10))
+    medians = {b: float(np.median(t)) for b, t in readings.items()}
+    best = min(medians, key=medians.get)
+    row = in_turns(kernel, backward(best))
+    return {**row, "library_call": f"SDPA backward ({best.name})",
+            "sdpa_backends_ms": {b.name: m for b, m in medians.items()}}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
 def sass_hgmma(lib_path):
     """HGMMA instructions in each tensor-core K5 function of the built
     library's SASS (``cuobjdump -sass``, the toolkit's or the copy in
@@ -543,7 +644,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_ref)
     from repro_torch.kernels.ring_lookup import ops as rl_ops
     from repro_torch.kernels.ring_lookup.ref import (ring_lookup64_ref,
                                                      ring_lookup_bucketed_ref,
@@ -858,9 +960,83 @@ def main() -> int:
             "shape": f"B={row['B']}, Sq={row['Sq']}, Sk={row['Sk']}, "
                      f"{heads_text(heads)}, bf16, {mask} ({site})",
             **{k: row[k] for k in summary}}
+    k5b_rows = []
+    for (b, sl, dtype_name), (h5, hkv5, hd5) in K5B_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, sl, h5, hd5), (b, sl, hkv5, hd5),
+                                     (b, sl, hkv5, hd5), (b, sl, h5, hd5)))
+        # K5 with lse (the training forward) against its plain version, and
+        # its output equal to the serve path's
+        o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                                with_lse=True)
+        ro, rlse = flash_attention_fwd_ref(q, k, v, causal=True)
+        lse_err = float((lse - rlse).abs().max())
+        o_err = float((o.float() - ro.float()).abs().max())
+        if not (lse_err <= K5_LSE_ATOL and o_err <= K5_TOL[dtype_name]) \
+                or not torch.equal(o, fa_kernel.flash_attention_cuda(
+                    q, k, v, causal=True)):
+            raise AssertionError(f"K5 with lse at {(b, sl, dtype_name)}: lse "
+                                 f"err {lse_err}, o err {o_err}")
+        fn5 = fa_ops.flash_attention
+        tc_before = fn5.bwd_tc_launches
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got5b = torch.autograd.grad(
+            fa_ops.FlashAttentionFn.apply(*leaves, True), leaves, do)
+        torch.cuda.synchronize()
+        route5b = "tc" if fn5.bwd_tc_launches > tc_before else "simt"
+        if route5b != ("simt" if dtype == torch.float32 else "tc") \
+                or route5b != fa_kernel.bwd_route(dtype, hd5):
+            raise AssertionError(f"K5b {dtype_name} at hd {hd5} took the "
+                                 f"{route5b} route")
+        plain5b = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        errs = {name: rel_err(g, w)
+                for name, g, w in zip(("dq", "dk", "dv"), got5b, plain5b)}
+        if not max(errs.values()) <= K5B_TOL[dtype_name]:
+            raise AssertionError(f"K5b at {(b, sl, dtype_name)}, {h5}/{hkv5} "
+                                 f"heads, hd {hd5}: {errs}")
+        pairs = sl * (sl + 1) // 2
+        # q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+        # five products over the causal pairs
+        size = q.element_size()
+        b5b, by5b = bound(size * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                                  + 2 * o.numel()) + 4 * lse.numel(),
+                          5 * 2 * b * h5 * hd5 * pairs,
+                          FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        k5b_rows.append({
+            "B": b, "S": sl, "H": h5, "Hkv": hkv5, "hd": hd5, "causal": True,
+            "dtype": dtype_name, "kernel_route": route5b,
+            "k5_lse_max_abs_err": lse_err,
+            "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got5b, plain5b)),
+            "rel_err": errs, "max_rel_err": max(errs.values()),
+            "tolerance": K5B_TOL[dtype_name],
+            "tolerance_of": "max_rel_err (max |d| / max |ref| per gradient)",
+            **sdpa_backward_in_turns(
+                lambda i: fa_kernel.flash_attention_bwd_cuda(
+                    q, k, v, o, lse, do, causal=True), q, k, v, do),
+            "plain_ms": cuda_ms(lambda i: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=True), iters=10, warmup=1),
+            "bound_ms": b5b, "bound_by": by5b})
+        del q, k, v, do, o, lse, ro, rlse, leaves, got5b, plain5b
+        torch.cuda.empty_cache()
+    main5b = k5b_rows[0]
+    K5B_SUMMARY = ("rel_err", "max_rel_err", "tolerance_of")
+    results["K5b"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:88",
+        "shape": f"B={main5b['B']}, S={main5b['S']}, "
+                 f"{heads_text(QWEN_HEADS)}, bf16, causal (qwen2.5-3b "
+                 "training, a layer)",
+        **{key: main5b[key] for key in summary + K5B_SUMMARY}}
+    results["K5b"]["lm100m"] = {
+        "shape": f"B=8, S=256, {heads_text(LM100M_HEADS)}, bf16, causal "
+                 "(the train_lm twin's lm-100m, a layer)",
+        **{key: k5b_rows[3][key] for key in summary + K5B_SUMMARY}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
-          "K3": k3_rows, "K5": k5_rows, "K6_f32": k6_f32})
+          "K3": k3_rows, "K5": k5_rows, "K5b": k5b_rows, "K6_f32": k6_f32})
     results["K7"] = k7_phase(dev, ids)
 
     # -- route ---------------------------------------------------------------
@@ -1018,10 +1194,16 @@ def main() -> int:
     results["K7"]["launches"] = quickstart_phase(dev)
     results["K4"]["launches"] += des_twin_phase(dev)
     results["K1"]["launches_dht_cluster"] = dht_cluster_phase(dev)
+    train = train_phase(dev)
+    results["K5b"]["launches"] = train["K5b"]
+    results["K5"]["launches_train"] = train["K5"]
+    train_lm_counts = train_lm_phase(dev)
+    results["K5"]["launches_train_lm"] = train_lm_counts["K5"]
+    results["K5b"]["launches_train_lm"] = train_lm_counts["K5b"]
     for key in results:
         results[key]["max_err"] = results[key]["max_abs_err"]
     emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
-                                           "K6", "K7")]})
+                                           "K5b", "K6", "K7")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -2855,6 +3037,286 @@ def dht_cluster_phase(dev) -> int:
             or out["min_replicas"] < dht_cluster.REPLICATION or launches < 1:
         raise AssertionError(f"dht_cluster: {out}, K1 {launches}")
     return launches
+
+
+def _zero_k5(fn) -> None:
+    for name in ("launches", "tc_launches", "simt_launches", "bwd_launches",
+                 "bwd_tc_launches"):
+        setattr(fn, name, 0)
+
+
+def _k5_counts(fn) -> dict:
+    return {"K5": fn.launches, "K5_tc": fn.tc_launches,
+            "K5b": fn.bwd_launches, "K5b_tc": fn.bwd_tc_launches}
+
+
+def _value_and_grad(model, params, batch):
+    """(loss, [gradient of each leaf]) of ``model.train_loss``."""
+    import torch
+    leaves = list(_leaves(params))
+    xs = [t.detach().requires_grad_() for t in leaves]
+    it = iter(xs)
+
+    def tree(t):
+        return {k: tree(v) for k, v in t.items()} if isinstance(t, dict) \
+            else next(it)
+    loss = model.train_loss(tree(params), batch)
+    return loss.detach(), torch.autograd.grad(loss, xs)
+
+
+def _plain_flash_fn():
+    """``FlashAttentionFn`` with the kernels' plain versions on any device
+    (the reference of the train gate; the port never runs it on the
+    card)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+
+    class PlainFlashAttentionFn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            o, lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal = causal
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return (*flash_attention_bwd_ref(*ctx.saved_tensors, do,
+                                             causal=ctx.causal), None)
+    return PlainFlashAttentionFn
+
+
+def train_phase(dev) -> dict:
+    """qwen2.5-3b at full size training on the card: AdamW steps through
+    ``make_train_step``, the launch gate, the kernels-against-plain gate at
+    ``TRAIN_GATE_LAYERS`` layers; returns the K5 / K5b counts of the timed
+    steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config("qwen2.5-3b")
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"qwen2.5-3b trains with remat {cfg.remat}, "
+                             f"{cfg.dtype}")
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    opt_cfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, total_steps=1000)
+    opt = adamw.init_state(params, opt_cfg)
+    step = make_train_step(model, TrainConfig(opt=opt_cfg))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fn = fa_ops.flash_attention
+    _zero_k5(fn)
+    mets, times, first = [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mets.append(met)
+        if i == 0:
+            first = _k5_counts(fn)
+    counts = _k5_counts(fn)
+    per_step = {"K5": 2 * cfg.num_layers, "K5_tc": 2 * cfg.num_layers,
+                "K5b": cfg.num_layers, "K5b_tc": cfg.num_layers}
+    if first != per_step or counts != {k: n * (1 + TRAIN_STEPS)
+                                       for k, n in per_step.items()}:
+        raise AssertionError(f"train: launch counts {first} in the first "
+                             f"step, {counts} in all, want {per_step} a step")
+    losses = [float(m["loss"]) for m in mets]
+    norms = [float(m["grad_norm"]) for m in mets]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    dev_ms = {"K5": 0.0, "K5b": 0.0, "all": 0.0}
+    for row in prof.key_averages():
+        ms = row.self_device_time_total / 1e3
+        dev_ms["all"] += ms
+        if "flash_tc_kernel<" in row.key or "flash_kernel<" in row.key:
+            dev_ms["K5"] += ms
+        elif any(name in row.key for name in K5B_KERNELS):
+            dev_ms["K5b"] += ms
+    step_s = float(np.median(times[1:]))
+    del params, opt, met, mets, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gate at full width and TRAIN_GATE_LAYERS layers: one step's loss
+    # and gradients with the kernels against FlashAttentionFn on the plain
+    # versions (no kernel may launch there)
+    cfg2 = cfg.with_overrides(num_layers=TRAIN_GATE_LAYERS)
+    model2 = Model(cfg2)
+    params2 = model2.init(torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    loss_k, grads_k = _value_and_grad(model2, params2, batch)
+    launched = _k5_counts(fn)
+    saved = layers.FlashAttentionFn
+    layers.FlashAttentionFn = _plain_flash_fn()
+    try:
+        loss_p, grads_p = _value_and_grad(model2, params2, batch)
+    finally:
+        layers.FlashAttentionFn = saved
+    if _k5_counts(fn) != launched:
+        raise AssertionError("train gate: a kernel ran in the plain step")
+    names = [n for n, _ in _paths(params2)]
+    leaf_errs = {n: rel_err(gk, gp) for n, gk, gp in zip(names, grads_k,
+                                                         grads_p)}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(leaf_errs, key=leaf_errs.get)
+    if not loss_rel <= TRAIN_LOSS_RTOL \
+            or not leaf_errs[worst] <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"train gate: loss {float(loss_k)} vs "
+                             f"{float(loss_p)}, worst leaf {worst} "
+                             f"{leaf_errs[worst]}")
+    del params2, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "model": cfg.name, "params": n_params,
+          "layers": cfg.num_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "remat": cfg.remat, "dtype": cfg.dtype, "losses": losses,
+          "grad_norms": norms, "step_ms": [t * 1e3 for t in times],
+          "ms_per_step_median": step_s * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "model_flops_share_of_bf16_peak": 6 * n_params * tokens / step_s
+          / BF16_FLOPS,
+          "max_memory_allocated_gib": peak / 2**30,
+          "device_ms_per_step": dev_ms, "launches_per_step": first,
+          "launches": counts,
+          "gate": {"layers": TRAIN_GATE_LAYERS, "loss_kernels": float(loss_k),
+                   "loss_plain": float(loss_p), "loss_rel": loss_rel,
+                   "loss_rtol": TRAIN_LOSS_RTOL, "worst_leaf": worst,
+                   "worst_leaf_rel_err": leaf_errs[worst],
+                   "bound": TRAIN_GRAD_BOUND},
+          "nvidia_smi": _smi()})
+    return counts
+
+
+def train_lm_phase(dev) -> dict:
+    """The train_lm twin's model (lm-100m) through ``Trainer`` with
+    checkpoint failover: a peer fails during step ``fail_at``; the run
+    restores the last checkpoint, bit for bit, and finishes.  Returns the
+    K5 / K5b counts."""
+    import shutil
+    import torch
+    from repro_torch import train_lm
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import FailoverConfig, Membership
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = train_lm.model_100m()
+    t = TRAIN_LM
+    ckpt_dir = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    members = Membership(device=dev)
+    for i in range(4):
+        members.request_join(f"10.0.0.{i}", 7000)
+    trainer = Trainer(Model(cfg), TrainerConfig(
+        steps=t["steps"], log_every=10, train=TrainConfig(
+            opt=adamw.OptConfig(peak_lr=3e-4, warmup_steps=20,
+                                total_steps=t["steps"])),
+        failover=FailoverConfig(str(ckpt_dir),
+                                save_every_steps=t["save_every"])),
+        membership=members, model_axis=1, device=dev)
+    saved, restored, save_s = {}, {}, []
+    save, restore = trainer.failover.maybe_save, trainer.failover.restore_latest
+
+    def spy_save(step, state):
+        t0 = time.perf_counter()
+        path = save(step, state)
+        if path:
+            save_s.append(time.perf_counter() - t0)
+            if not restored:        # the last checkpoint before the restore
+                saved.clear()
+                saved[step] = [x.cpu().clone() for x in adamw.leaves(state)]
+        return path
+
+    def spy_restore(target):
+        step, state = restore(target)
+        restored[step] = [x.cpu().clone() for x in adamw.leaves(state)]
+        return step, state
+    trainer.failover.maybe_save = spy_save
+    trainer.failover.restore_latest = spy_restore
+
+    def batches():
+        for i, b in enumerate(SyntheticLM(DataConfig(
+                vocab=cfg.vocab, seq_len=t["seq"], global_batch=t["batch"],
+                seed=0))):
+            if i == t["fail_at"] - 1:           # step fail_at runs next
+                members.fail(members.members()[-1])
+            yield b
+    fn = fa_ops.flash_attention
+    _zero_k5(fn)
+    try:
+        state = trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+        t0 = time.perf_counter()
+        trainer.fit(state, batches())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    counts = _k5_counts(fn)
+    back = t["fail_at"] // t["save_every"] * t["save_every"]
+    ran = t["steps"] + t["fail_at"] - back
+    hist = trainer.history
+    if list(restored) != [back] or list(saved) != [back] \
+            or not all(torch.equal(a, b)
+                       for a, b in zip(saved[back], restored[back])) \
+            or len(saved[back]) != len(restored[back]):
+        raise AssertionError(f"train_lm: restored {list(restored)}, saved "
+                             f"{list(saved)}, not equal bit for bit")
+    if not hist[-1]["loss"] < hist[0]["loss"] or hist[-1]["step"] != t["steps"] \
+            or ckpt_dir.exists():
+        raise AssertionError(f"train_lm: history {hist}, checkpoint dir left: "
+                             f"{ckpt_dir.exists()}")
+    per = cfg.num_layers * ran
+    if counts != {"K5": per, "K5_tc": per, "K5b": per, "K5b_tc": per}:
+        raise AssertionError(f"train_lm: launch counts {counts}, want {per} "
+                             f"of each ({ran} steps x {cfg.num_layers})")
+    emit({"phase": "train_lm", "model": cfg.name,
+          "params": cfg.param_count(), "steps_run": ran,
+          "restored_step": back, "restored_bit_equal": True,
+          "leaves_restored": len(restored[back]),
+          "loss_first_last": [hist[0]["loss"], hist[-1]["loss"]],
+          "history": hist, "wall_s": wall, "checkpoint_save_s": save_s,
+          "launches": counts, "checkpoint_dir_removed": True})
+    return counts
+
+
+def _paths(tree, pre=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{pre}/{k}")
+    else:
+        yield pre, tree
+
+
+def _smi() -> str:
+    from repro_torch.kernels import backend
+    return backend.nvidia_smi_line()
 
 
 def _device():

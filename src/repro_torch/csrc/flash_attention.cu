@@ -6,7 +6,10 @@
 // softmax over kv tiles in f32.  As in the TPU kernel, q, k and v are
 // upcast to f32 and the probabilities p stay in f32 for p . v; masked
 // scores are -1e30 with the top-left-aligned causal mask (qpos >= kpos);
-// the output is acc / max(l, 1e-30) in q's dtype.
+// the output is acc / max(l, 1e-30) in q's dtype.  Where the caller passes
+// an lse buffer (the training forward), each row's natural-log logsumexp of
+// its scaled scores, m + log(l), goes there as f32 (B, H, Sq); the serve
+// path passes null and writes nothing more.
 //
 // Bound on this card: at qwen2.5-3b's whole-prompt admit (B 1, S 1024,
 // H 16, Hkv 2, hd 128, bf16, causal) the work is 4.29 GFLOP (4.3 us at
@@ -87,7 +90,8 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, int 
 template <typename T, int HDQK, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int Sq, int Sk, int H, int Hkv, float scale, int causal) {
+             T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+             float scale, int causal) {
   constexpr int NJ = HDV / 16;
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -204,6 +208,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * Sq + qpos] = m[i] + logf(l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* o = out + (static_cast<size_t>(b) * Sq + qpos) * o_stride + static_cast<size_t>(h) * HDV;
 #pragma unroll
@@ -212,8 +218,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int HDQK, int HDV>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-           int H, int Hkv, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Sk, int H, int Hkv, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(HDQK, HDV);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -224,24 +230,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_kernel<T, HDQK, HDV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, Hkv, scale, causal);
+      static_cast<T*>(out), lse, Sq, Sk, H, Hkv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-              int H, int Hkv, int hd, int hdv, float scale, int causal, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+              int Sk, int H, int Hkv, int hd, int hdv, float scale, int causal,
+              cudaStream_t stream) {
   if (hd == 192 && hdv == 128)  // MLA: q . k over 128 nope + 64 rope columns
-    return launch<T, 192, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
+    return launch<T, 192, 128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, scale, causal, stream);
   if (hdv != hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch<T, 16, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
-    case 32: return launch<T, 32, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
-    case 64: return launch<T, 64, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
+    case 16: return launch<T, 16, 16>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, scale, causal, stream);
+    case 32: return launch<T, 32, 32>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, scale, causal, stream);
+    case 64: return launch<T, 64, 64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, scale, causal, stream);
     case 112:
-      return launch<T, 112, 112>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
+      return launch<T, 112, 112>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, scale, causal, stream);
     case 128:
-      return launch<T, 128, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, scale, causal, stream);
+      return launch<T, 128, 128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, scale, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -251,21 +258,22 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out alike);
 // q: (B, Sq, H, hd), k: (B, Sk, Hkv, hd), v: (B, Sk, Hkv, hdv), out: (B, Sq,
 // H, hdv), contiguous; hdv == hd in {16, 32, 64, 112, 128}, or (hd, hdv) =
-// (192, 128)
+// (192, 128); lse: null, or f32 (B, H, Sq) for each row's logsumexp
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int Sq, int Sk, int H, int Hkv, int hd, int hdv,
-                                      int causal, int dtype, float scale, void* stream) {
+                                      void* lse, int B, int Sq, int Sk, int H, int Hkv, int hd,
+                                      int hdv, int causal, int dtype, float scale, void* stream) {
+  float* const lse_f = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return launch_hd<float>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, st);
+      return launch_hd<float>(q, k, v, out, lse_f, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, st);
     case 1:
-      return launch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal,
+      return launch_hd<__nv_bfloat16>(q, k, v, out, lse_f, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal,
                                       st);
     case 2:
-      return launch_hd<__half>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, st);
+      return launch_hd<__half>(q, k, v, out, lse_f, B, Sq, Sk, H, Hkv, hd, hdv, scale, causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
-"""Launcher of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
-and ``csrc/flash_attention_tc.cu``).
+"""Launchers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
+and ``csrc/flash_attention_tc.cu``, the forward, K5; and
+``csrc/flash_attention_bwd.cu``, its gradient, K5b).
 
 K5 ``flash_attention_cuda`` replaces ``flash_attention_pallas``
 (``repro/kernels/flash_attention/kernel.py``) on two routes, picked from
@@ -8,9 +9,20 @@ q's dtype and the (q . k, v) head dims alone before any launch
 width 192 with v at 128, run on the tensor cores (wgmma, TMA; hd 112 on
 the hd-128 tiles, whose last 16 columns the TMA fills with zeros),
 everything else (f32, hd 16 and 32) on the f32 SIMT kernel, whose 2e-5
-tolerance the tensor cores cannot meet.  The design notes sit in the CUDA
-sources.  The output is allocated here with ``torch.empty``; the kernels
-launch on the current stream and do not synchronise.
+tolerance the tensor cores cannot meet.  ``with_lse=True`` (the training
+forward) also returns each row's natural-log logsumexp of its scaled
+scores, f32 (B, H, Sq), which K5b reads back.
+
+K5b ``flash_attention_bwd_cuda`` has no TPU counterpart (``repro``
+differentiates its jnp flash path with ``jax.grad``): it takes the
+forward's q, k, v, o, lse and dO and returns dq, dk, dv in three
+launches (D = rowsum(dO o), dK/dV, dQ), on the tensor cores (mma.sync)
+for bf16 and fp16 and on the CUDA cores for f32 (``bwd_route``), at
+(hd, v hd) in ``BWD_HEAD_DIMS`` only, causal only with Sq == Sk; anything
+else raises ``ValueError`` before a launch.  The design notes sit in the
+CUDA sources.  Outputs and scratch are allocated here with
+``torch.empty``; the kernels launch on the current stream and do not
+synchronise.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128),
 TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))  # tensor cores'
 BQ = 64                             # query rows per block (both kernels)
+BWD_HEAD_DIMS = ((64, 64), (128, 128))            # K5b's, on both routes
 
 
 def route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
@@ -38,21 +51,38 @@ def route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
         else "simt"
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool) -> torch.Tensor:
-    """q: (B,Sq,H,dqk); k: (B,Sk,Hkv,dqk); v: (B,Sk,Hkv,dv) ->
-    (B,Sq,H,dv) in q's dtype, scaled by 1/sqrt(dqk)."""
-    dev = q.device
-    for t in (q, k, v):
+def bwd_route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
+    """K5b's route: ``"tc"`` for bf16/fp16, ``"simt"`` for f32, at (dqk,
+    dv) in ``BWD_HEAD_DIMS`` (dv defaults to dqk); raises ``ValueError``
+    for any other type or head dims (hd 112, MLA's (192, 128), 16, 32:
+    ROADMAP queue 2)."""
+    dv = dqk if dv is None else dv
+    if dtype not in _DTYPES or (dqk, dv) not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: no kernel for {dtype} "
+                         f"at head dims (q.k {dqk}, v {dv}); it takes "
+                         f"{list(_DTYPES)} at {BWD_HEAD_DIMS}")
+    return "simt" if dtype == torch.float32 else "tc"
+
+
+def _check(name: str, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
         if t.device.type != "cuda" or t.device != dev:
-            raise ValueError("flash_attention: expects tensors on one CUDA "
-                             "device")
+            raise ValueError(f"{name}: expects tensors on one CUDA device")
         if not t.is_contiguous():
-            raise ValueError("flash_attention: expects contiguous tensors")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: q/k/v must share one of "
-                         f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+            raise ValueError(f"{name}: expects contiguous tensors")
+    if ts[0].dtype not in _DTYPES or any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError(f"{name}: tensors must share one of {list(_DTYPES)}, "
+                         f"got {[t.dtype for t in ts]}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, with_lse: bool = False):
+    """q: (B,Sq,H,dqk); k: (B,Sk,Hkv,dqk); v: (B,Sk,Hkv,dv) ->
+    (B,Sq,H,dv) in q's dtype, scaled by 1/sqrt(dqk); with ``with_lse``,
+    (out, lse) with lse f32 (B, H, Sq)."""
+    dev = q.device
+    _check("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: expects (B, S, heads, hd) tensors")
     b, sq, h, hd = q.shape
@@ -75,8 +105,62 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("flash_attention: the tensor-core route needs "
                              "16-byte-aligned q, k and v")
     out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) \
+        if with_lse else None
     build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, sq, sk, h, hkv, hd, hdv, int(causal),
+                 out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                 b, sq, sk, h, hkv, hd, hdv, int(causal),
                  _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
                  torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool):
+    """K5b: the gradients (dq, dk, dv) of ``flash_attention_cuda`` at
+    (q, k, v), from its output ``o``, its ``lse`` and the output gradient
+    ``do`` (B,Sq,H,hd), each in q's dtype; dk and dv summed over each kv
+    head's query heads."""
+    dev = q.device
+    _check("flash_attention backward", q, k, v, o, do)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention backward: expects (B, S, heads, "
+                         "hd) tensors")
+    b, sq, h, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    hdv = v.shape[3]
+    route_ = bwd_route(q.dtype, hd, hdv)
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd \
+            or hkv < 1 or h % hkv or o.shape != (b, sq, h, hdv) \
+            or do.shape != o.shape:
+        raise ValueError(f"flash_attention backward: mismatched shapes "
+                         f"{q.shape}, {k.shape}, {v.shape}, {o.shape}, "
+                         f"{do.shape}")
+    if causal and sq != sk:
+        raise ValueError(f"flash_attention backward: causal needs Sq == Sk, "
+                         f"got {sq} and {sk}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"flash_attention backward: lse must be f32 "
+                         f"{(b, h, sq)} on {dev}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if not (q.numel() and k.numel()) or -(-sq // BQ) > 65535:
+        raise ValueError(f"flash_attention backward: takes 1 <= Sq <= "
+                         f"{65535 * BQ} and Sk >= 1, got {q.shape}, {k.shape}")
+    entry = "flash_attention_bwd_launch"
+    if route_ == "tc":
+        entry = "flash_attention_bwd_tc_launch"
+        if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):  # 16-byte loads
+            raise ValueError("flash_attention backward: the tensor-core "
+                             "route needs 16-byte-aligned q, k, v, o, dO")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, sq, sk, h,
+                 hkv, hd, hdv, int(causal), _DTYPES[q.dtype],
+                 1.0 / math.sqrt(hd),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    return dq, dk, dv

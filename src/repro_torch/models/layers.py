@@ -14,7 +14,8 @@ offset that K5 does not take, so it stays plain torch, as ``repro``
 leaves it to XLA.  MLA's prefill runs K5 with a q . k head dim of
 qk_nope + qk_rope and a v head dim of its own; its absorbed decode over
 the latent cache is plain torch products, as in ``repro`` (no TPU kernel
-computes it).
+computes it).  Under autograd (training) the attention goes through
+``FlashAttentionFn``: K5 forward with the rows' logsumexp, K5b backward.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.ops import decode_attention as _decode_op
+from ..kernels.flash_attention.ops import FlashAttentionFn
 from ..kernels.flash_attention.ops import flash_attention as _flash_op
 from ..sharding.specs import psum_tp, tp_axis, tp_index
 
@@ -102,7 +104,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over a fresh segment (kernel K5), for a prefill from
     cache position 0.  q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd).
     Unlike ``repro``'s jnp path, p stays f32 for p . v, as in the TPU
-    kernel."""
+    kernel.  Where autograd records (grad mode on and an input that
+    requires grad) it runs ``FlashAttentionFn``, whose backward is K5b."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal)
     return _flash_op(q.contiguous(), k.contiguous(), v.contiguous(),
                      causal=causal)
 
@@ -590,3 +596,22 @@ def logits_fn(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     make argmax ties likely over a 151,936-token vocabulary)."""
     w = params["lm_head"] if "lm_head" in params else params["embedding"].T
     return torch.matmul(h.float(), w.float())
+
+
+def chunked_ce_loss(params: Params, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross entropy over chunks of ``cfg.loss_chunk`` positions, so
+    that (B, S, V) logits never exist at once (``repro``'s
+    ``chunked_ce_loss``): f32 logits and logsumexp, the positions past
+    the last whole chunk (``n * c``) dropped as ``repro`` drops them."""
+    b, s, _ = h.shape
+    c = min(cfg.loss_chunk, s)
+    n = s // c
+    labels = labels.to(torch.int64)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        logits = logits_fn(params, h[:, i * c:(i + 1) * c], cfg)  # (B,c,V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, i * c:(i + 1) * c, None])[..., 0]
+        tot = tot + torch.sum(logz - gold)
+    return tot / (b * n * c)

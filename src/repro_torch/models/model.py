@@ -12,6 +12,7 @@ and the encoder-decoder (``encdec``, whisper).
     logits, cache = m.decode_step(params, cache, tokens, index)
     block = m.export_kv_block(cache, row, off, chunk)   # host slab
     cache = m.cache_with_blocks(max_len, [block, ...], device=...)
+    loss = m.train_loss(params, {"tokens": t, "labels": y})  # differentiable
 
 ``device=None`` means the CUDA card and raises without one; pass
 ``device="cpu"`` to run on the host with the kernels' plain versions.
@@ -87,6 +88,22 @@ class Model:
                 f"{what}: the port names logical axes for the transformer "
                 f"families only, not family={self.cfg.family!r}")
         return transformer
+
+    # -- training ----------------------------------------------------------------
+    def train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch`` (``tokens`` and
+        ``labels`` (B, S); the VLM also ``image_embeds``), differentiable
+        in ``params`` (the dense, MoE, MLA and VLM families; attention on
+        ``FlashAttentionFn``).  The SSM, hybrid and encoder-decoder
+        families raise: their training needs a K6 backward and K5's
+        unmasked backward (ROADMAP queue 1, item 4)."""
+        if _module(self.cfg) is not transformer:
+            raise NotImplementedError(
+                f"train_loss of family {self.cfg.family!r} is not ported "
+                f"yet: it needs a K6 backward and K5's unmasked backward "
+                f"(ROADMAP queue 1, item 4)")
+        return transformer.train_loss(params, batch, self.cfg)
 
     # -- serving ---------------------------------------------------------------
     @property

@@ -13,6 +13,13 @@ written in place.  KV blocks (the data plane's wire format) are host
 slabs of (2, chunk, layers, kv_heads, head_dim), k and v stacked; a
 bfloat16 slab leaves the card as its raw words (``dht.data.Bf16Words``)
 and comes back bit for bit.
+
+Training (``train_loss``) walks the layers as the forward does, each layer
+under ``torch.utils.checkpoint`` where ``cfg.remat`` asks for it.  Each
+stacked leaf is split into its layers by one ``unbind``, whose backward
+stacks the layers' gradients into one gradient of the stacked leaf (an
+indexing ``t[i]`` a layer would write a zero-filled gradient of the whole
+stack in every layer's backward).
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..dht.data import Bf16Words
@@ -294,6 +303,80 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     if cfg.moe_experts:
         return x + L.moe_block(lp["moe"], h, cfg)
     return x + L.mlp(lp["mlp"], h, cfg)
+
+
+# the products whose outputs remat="dots" keeps: ``repro``'s
+# checkpoint_dots_with_no_batch_dims keeps the outputs of the dots without
+# batch dimensions, which are the 2-D products here (not the experts' bmm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: ``"none"`` as it is, ``"full"``
+    recomputed in the backward from its inputs, ``"dots"`` recomputed
+    but for the matrix products' outputs.  Outside autograd it runs as
+    it is."""
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat={cfg.remat!r}: takes none, dots or full")
+    if cfg.remat == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        extra = {}
+        if cfg.remat == "dots":
+            extra["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **extra)
+    return wrapped
+
+
+def _layer_slices(params: Params, n: int):
+    """The ``n`` per-layer trees of the stacked leaves, one ``unbind`` a
+    leaf."""
+    split = _map(lambda t: t.unbind(0), params["layers"])
+    return [_map(lambda ts, i=i: ts[i], split) for i in range(n)]
+
+
+def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+             positions: torch.Tensor) -> torch.Tensor:
+    """Embedded input (B, S, d) -> final hidden states, no cache
+    (``repro``'s ``backbone``): every layer on the fresh segment, causal,
+    under ``cfg.remat``."""
+    def body(lp, h):
+        return _layer_body(cfg, lp, h, positions=positions, cache=None,
+                           cache_index=None, chunk=False)
+
+    layer = _remat(cfg, body)
+    for lp in _layer_slices(params, cfg.num_layers):
+        x = layer(lp, x)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def train_loss(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross entropy (``repro``'s ``train_loss``): the
+    VLM's ``image_embeds`` (B, vision_tokens, d) go before the embedded
+    tokens, and their positions are cut before the loss, so only the
+    text positions' labels count."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = L.embed(params["embed"], tokens, cfg)
+    mask_img = 0
+    if "image_embeds" in batch:
+        img = batch["image_embeds"].to(x.dtype)
+        x = torch.cat([img, x], dim=1)
+        mask_img = img.shape[1]
+    positions = torch.arange(x.shape[1], device=x.device).expand(
+        x.shape[:2])
+    h = backbone(params, x, cfg, positions=positions)
+    return L.chunked_ce_loss(params["embed"], h[:, mask_img:], labels, cfg)
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor, cache: Dict,

@@ -1,15 +1,73 @@
-"""Replica restarts on membership generations (the port's copy of
-``ReplicaSupervisor`` from ``repro.runtime.failover``), with its registry
-of tensor-parallel replica groups.
+"""Checkpoint/restart bound to membership generations, and replica
+restarts on them (the port's ``repro.runtime.failover``).
 
-``repro``'s ``FailoverManager`` (checkpoint restore) waits for the
-training slice (ROADMAP queue 1, item 4).
+``FailoverManager``: the trainer saves a checkpoint every
+``save_every_steps`` steps (``ckpt``, keeping the last ``keep_last``);
+on a membership event the ``ElasticController`` bumps its generation,
+``needs_restore`` turns true, and the trainer restores the latest
+complete checkpoint onto its own devices and resumes from its step.
+
+``ReplicaSupervisor`` is the serve-plane counterpart, with its registry
+of tensor-parallel replica groups: instead of checkpoints it tracks
+per-node membership generations, so the serve cluster knows when a
+node's device-resident state (KV slabs) must be treated as lost and its
+replica restarted rather than resumed.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+import shutil
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
 
+from .. import ckpt as ckpt_lib
+from .elastic import ElasticController
 from .membership import Membership
+
+
+@dataclass
+class FailoverConfig:
+    ckpt_dir: str
+    save_every_steps: int = 100
+    keep_last: int = 3
+
+
+class FailoverManager:
+    def __init__(self, cfg: FailoverConfig, controller: ElasticController):
+        self.cfg = cfg
+        self.controller = controller
+        self._seen_generation = controller.generation
+        os.makedirs(cfg.ckpt_dir, exist_ok=True)
+
+    # -- checkpoint cadence ---------------------------------------------------
+    def maybe_save(self, step: int, state: Any) -> Optional[str]:
+        if step % self.cfg.save_every_steps:
+            return None
+        path = ckpt_lib.save(self.cfg.ckpt_dir, step, state)
+        self._gc()
+        return path
+
+    def _gc(self) -> None:
+        steps = sorted(
+            int(d.split("_", 1)[1]) for d in os.listdir(self.cfg.ckpt_dir)
+            if d.startswith("step_") and not d.endswith(".tmp"))
+        for s in steps[:-self.cfg.keep_last]:
+            shutil.rmtree(os.path.join(self.cfg.ckpt_dir, f"step_{s}"),
+                          ignore_errors=True)
+
+    # -- restart path -----------------------------------------------------------
+    def needs_restore(self) -> bool:
+        return self.controller.generation != self._seen_generation
+
+    def restore_latest(self, target_state: Any) -> tuple[int, Any]:
+        """(step, state) of the latest complete checkpoint, each leaf on
+        its target's device and in its dtype."""
+        step = ckpt_lib.latest_step(self.cfg.ckpt_dir)
+        if step is None:
+            raise FileNotFoundError("no checkpoint to restore")
+        state = ckpt_lib.restore(self.cfg.ckpt_dir, step, target_state)
+        self._seen_generation = self.controller.generation
+        return step, state
 
 
 class ReplicaSupervisor:

@@ -653,6 +653,76 @@ def test_flash_attention_at_mla_head_dims(cuda, dtype, b, sq, sk, h, hkv,
                                rtol=0)
 
 
+# K5b (the backward) against its plain version on the same q, k, v, o,
+# lse, dO: max |d| / max |ref| per gradient, 2e-2 in bf16 and 5e-3 in
+# fp16 (P and dS enter the products rounded to the input type), 1e-4 in
+# f32 (the CUDA cores, sums in another order)
+K5B_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", [
+    (2, 100, 100, 4, 2, 64, True),          # ragged tiles, g 2
+    (1, 70, 130, 4, 1, 128, False),         # Sq != Sk, no mask, g 4
+    (2, 130, 130, 8, 2, 128, True),
+    (1, 256, 256, 12, 4, 64, True),         # lm-100m's heads
+    (1, 1024, 1024, 16, 2, 128, True),      # qwen2.5-3b's heads
+])
+def test_flash_attention_backward_kernel_equals_plain(cuda, dtype, b, sq, sk,
+                                                      h, hkv, hd, causal):
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + hd)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, sq, h, hd), (b, sk, hkv, hd),
+                             (b, sk, hkv, hd), (b, sq, h, hd)))
+    o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                            with_lse=True)
+    ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+    assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal=causal))
+    fn = fa_ops.flash_attention
+    before = fn.bwd_launches, fn.bwd_tc_launches
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.FlashAttentionFn.apply(*leaves, causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    tc = fa_kernel.bwd_route(dtype, hd) == "tc"
+    assert tc == (dtype != torch.float32)
+    assert (fn.bwd_launches, fn.bwd_tc_launches) == (before[0] + 1,
+                                                     before[1] + tc)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        err = float((x.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= K5B_TOL[dtype], err
+    again = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_refuses_before_a_launch(cuda):
+    fn = fa_ops.flash_attention
+    before = fn.bwd_launches
+    for hd, hdv, dtype in ((112, 112, torch.bfloat16), (192, 128, torch.bfloat16),
+                           (32, 32, torch.float32)):
+        q = torch.randn((1, 8, 2, hd), device=cuda).to(dtype)
+        v = torch.randn((1, 8, 2, hdv), device=cuda).to(dtype)
+        o = torch.randn((1, 8, 2, hdv), device=cuda).to(dtype)
+        lse = torch.zeros((1, 2, 8), device=cuda)
+        with pytest.raises(ValueError, match="no kernel"):
+            fa_kernel.flash_attention_bwd_cuda(q, q, v, o, lse, o,
+                                               causal=True)
+    q = torch.randn((1, 8, 2, 64), device=cuda).to(torch.bfloat16)
+    k = torch.randn((1, 16, 2, 64), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa_kernel.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(
+            (1, 2, 8), device=cuda), q, causal=True)
+    assert fn.bwd_launches == before
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn((1, 8, 2, 48), device=cuda)

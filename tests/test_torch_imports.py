@@ -43,11 +43,16 @@ print(" ".join(names))
 print(len(names))
 """
 
-# the modules of the tensor-parallel and dht_cluster slice
+# the modules of the tensor-parallel and dht_cluster slice, and of the
+# training slice
 NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.launch.mesh", "repro_torch.models.tp",
                "repro_torch.runtime.elastic", "repro_torch.sharding.specs",
-               "repro_torch.tp_cluster")
+               "repro_torch.tp_cluster",
+               "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
+               "repro_torch.launch.inputs", "repro_torch.optim.adamw",
+               "repro_torch.runtime.failover", "repro_torch.train.step",
+               "repro_torch.train.trainer", "repro_torch.train_lm")
 
 
 def _env(**extra):
