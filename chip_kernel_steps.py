@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """What holds K3 (decode attention), K2 (bucketed ring lookup), K6
-(selective scan), K4 (EDRA tree) and K7 (single-word ring lookup) back,
-and what each step of their redesign buys, on one card; and K5's (flash
-attention) device time at the serve paths' heads.
+(selective scan), K4 (EDRA tree), K7 (single-word ring lookup) and K5b
+(the flash backward) back, and what each step of their redesign buys, on
+one card; and K5's (flash attention) device time at the serve paths'
+heads.
 
     python3 chip_kernel_steps.py [phase ...]     # all phases by default
 
@@ -79,7 +80,16 @@ layer's cache is cold:
             and by the CUDA-event time of back-to-back calls, beside SDPA's
             device time (its default backend) on the same inputs; a shape
             the tree's tensor-core route does not take is reported as
-            skipped.
+            skipped;
+  k5b       K5b (``flash_attention_bwd_cuda``, bf16, causal) at the
+            training shapes of qwen2.5-3b (B 8, S 1024, 16 / 2, hd 128),
+            lm-100m (B 8, S 256, 12 / 4, hd 64) and deepseek-v2 (B 1,
+            S 2048, 128 / 128, q . k 192, v 128): the device ms of each of
+            its three kernels and in all, the CUDA-event ms, and the error
+            against the plain version, for the kernel and for each timing
+            variant of its design (``K5B_STEPS``: patched copies of
+            ``csrc/flash_attention_bwd.cu``), with the number of functions
+            in which ptxas serialized the wgmmas (its C7515 note).
 
 The phases read which design the checkout holds from its sources, so the
 script also measures a parent's kernels when copied into its tree.
@@ -362,10 +372,11 @@ def variant_library(name: str, src: Path, swaps=None, extra: str = ""):
         src = build_dir_source(f"{name}.cu", text + extra)
     out = build.BUILD_DIR / "steps" / f"{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
-                    f"-I{build.CSRC}", "-o", str(out), str(src)],
-                   check=True, capture_output=True, text=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
+                           f"-I{build.CSRC}", "-o", str(out), str(src)],
+                          check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
+    lib.build_log = proc.stdout + proc.stderr          # ptxas' -v report
     for entry, argtypes in build.SIGNATURES.items():
         if hasattr(lib, entry):
             getattr(lib, entry).argtypes = argtypes
@@ -1025,7 +1036,93 @@ def k5(dev, gen):
     torch.cuda.empty_cache()
 
 
-PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4", "k7", "k5")
+# K5b at the training paths' shapes: (model, B, S, H, Hkv, q . k hd, v hd)
+K5B_SHAPES = (("qwen2.5-3b", 8, 1024, 16, 2, 128, 128),
+              ("lm-100m", 8, 256, 12, 4, 64, 64),
+              ("deepseek-v2", 1, 2048, 128, 128, 192, 128))
+# timing variants of the wgmma design of csrc/flash_attention_bwd.cu
+# (patched copies): the zeroed dK/dV and dQ sums not pinned before the
+# first wgmma (ptxas then serializes the products), rings of two stages
+# everywhere, and a stage refilled only once the step's first products
+# are done (wait for all, then refill)
+K5B_PIN = """  // ptxas serializes the products)
+#pragma unroll
+  for (int bx = 0; bx < NQK; ++bx) fence_regs(dq_acc[bx]);
+"""
+K5B_PIN2 = """  // ptxas serializes the products)
+#pragma unroll
+  for (int bx = 0; bx < NQK; ++bx) fence_regs(dk_acc[bx]);
+#pragma unroll
+  for (int bx = 0; bx < NV; ++bx) fence_regs(dv_acc[bx]);
+"""
+K5B_STEPS = {
+    "unpinned": {K5B_PIN: "", K5B_PIN2: ""},
+    "stages2": {"dkdv_smem(3) <= kSmemMax ? 3 : 2": "2",
+                "2 * (dq_smem(3) + 1024) <= kSmemSm ? 3 : 2": "2"},
+    "late_refill": {
+        """    wg_wait<1>();
+    bar_sync(1 + wg, kWg);
+    if (t == 0 && m >= 1 && m - 1 + kStages < n_mine) load(m - 1 + kStages);
+    wg_wait<0>();""": """    wg_wait<0>();
+    bar_sync(1 + wg, kWg);
+    if (t == 0 && m >= 1 && m - 1 + kStages < n_mine) load(m - 1 + kStages);""",
+        """    wg_wait<1>();
+    __syncthreads();
+    if (tid == 0 && j >= 1 && j - 1 + kStages < n_kt) load(j - 1 + kStages);
+    wg_wait<0>();""": """    wg_wait<0>();
+    __syncthreads();
+    if (tid == 0 && j >= 1 && j - 1 + kStages < n_kt) load(j - 1 + kStages);"""},
+}
+K5B_TOL = 2e-2                    # chip_smoke's bf16 K5B_TOL (of max |ref|)
+
+
+def k5b(dev, gen):
+    """K5b's kernels by device time at the training shapes, for the kernel
+    and each timing variant of its design (variants are not gated)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    src = build.CSRC / "flash_attention_bwd.cu"
+    if "bwd_dkdv_wgmma_kernel" not in src.read_text():
+        emit({"phase": "k5b", "skipped": "not the wgmma design"})
+        return
+    libs = {"kernel": variant_library("k5b_kernel", src)}
+    libs.update({name: variant_library(f"k5b_{name}", src, sw)
+                 for name, sw in K5B_STEPS.items()})
+    for model, b, s, h, hkv, hd, hv in K5B_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+                       for shape in ((b, s, h, hd), (b, s, hkv, hd),
+                                     (b, s, hkv, hv), (b, s, h, hv)))
+        o, lse = fk.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        row = {"model": model, "B": b, "S": s, "H": h, "Hkv": hkv, "hd": hd,
+               "dv": hv, "dtype": "bfloat16", "causal": True}
+        for name, lib in libs.items():
+            def call(i):
+                return fk.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                   causal=True)
+            with routed_to(lib):
+                got = call(0)
+                torch.cuda.synchronize()
+                err = max(float((x.float() - w.float()).abs().max()
+                                / w.float().abs().max())
+                          for x, w in zip(got, want))
+                if name == "kernel" and not err <= K5B_TOL:
+                    raise AssertionError(f"K5b at {model}'s shape: {err}")
+                per_kernel = profile_split(call)
+                emit({"phase": "k5b", **row, "variant": name, "rel_err": err,
+                      "device_ms": device_ms(call), "ms": smoke.cuda_ms(call),
+                      "per_kernel_device_ms": per_kernel,
+                      "serialized_functions": lib.build_log.count("C7515")})
+            del got
+        del q, k, v, do, o, lse, want
+        torch.cuda.empty_cache()
+
+
+PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4", "k7", "k5",
+          "k5b")
 
 
 def main(argv=None) -> int:
@@ -1052,7 +1149,7 @@ def main(argv=None) -> int:
             continue
         if phase in ("k3_tc", "k2_alternatives") and not redesigned:
             continue
-        if phase in ("k3_simt", "k3_tc", "k6", "k5"):
+        if phase in ("k3_simt", "k3_tc", "k6", "k5", "k5b"):
             globals()[phase](dev, gen)
         else:
             globals()[phase](dev)

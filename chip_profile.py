@@ -47,7 +47,7 @@ draws, K4 (the window reports its share) and the device metering.  Then
 one training step of qwen2.5-3b at full size (bf16, remat full, AdamW, B 8
 x S 1024 of ``SyntheticLM``), after a warm-up step: the shares of K5 (its
 forward and remat recompute, ``flash_tc_kernel``), of K5b (its
-``bwd_delta``, ``bwd_dkdv`` and ``bwd_dq`` kernels) and of the f32 logits'
+``bwd_prep``, ``bwd_dkdv_wgmma`` and ``bwd_dq_wgmma`` kernels) and of the f32 logits'
 forward (``layers.logits_fn`` under the label ``logits_f32``; their
 backward runs outside it).  Prints
 one JSON line per window: host wall time, device busy time (the union
@@ -370,8 +370,8 @@ def main() -> int:
     with _labelled(layers, "logits_f32", "logits_fn"):
         _window("train_step_qwen", train, 1, labels=("logits_f32",), shares={
             "K5": ("flash_tc_kernel<",),
-            "K5b": ("bwd_delta_kernel<", "bwd_dkdv_tc_kernel<",
-                    "bwd_dq_tc_kernel<")})
+            "K5b": ("bwd_prep_kernel<", "bwd_dkdv_wgmma_kernel<",
+                    "bwd_dq_wgmma_kernel<")})
     return 0
 
 

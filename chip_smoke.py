@@ -8,8 +8,8 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
 
   device   nvidia-smi's name and power limit, torch/CUDA versions, the
            kernel build time, ptxas' register report, and the HGMMA count
-           of each tensor-core K5 function in the library's SASS
-           (``cuobjdump -sass``; none there fails the run);
+           of each tensor-core K5 and K5b function in the library's SASS
+           (``cuobjdump -sass``; a function without one fails the run);
   kernels  K1 (ring_lookup64), K2 (ring_lookup_bucketed), K3
            (decode_attention), K5 (flash_attention: qwen2.5-3b's
            1024-token admit in bf16 and fp16, a ragged 1000, a non-causal
@@ -20,8 +20,9 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            (the training forward; lse within 1e-4 of the plain one, its
            output equal to the serve path's) and K5b (the flash backward,
            csrc/flash_attention_bwd.cu: qwen2.5-3b's training shape, B 8,
-           S 1024, 16/2 heads of hd 128, causal, in bf16, fp16 and f32, and
-           lm-100m's, B 8, S 256, 12/4 of hd 64, in bf16; max |d| / max
+           S 1024, 16/2 heads of hd 128, causal, in bf16, fp16 and f32,
+           lm-100m's, B 8, S 256, 12/4 of hd 64, and deepseek-v2's, B 1,
+           S 2048, 128/128 of q . k 192 and v 128, in bf16; max |d| / max
            |ref| per gradient within 2e-2, 5e-3 and 1e-4; each case's route
            checked against ``kernel.bwd_route``; timed in turns with SDPA's
            backward pinned to its fastest backend; the bound is its five
@@ -208,6 +209,15 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            tokens/s, the share of the bf16 dense peak that 6 N tokens a
            step reads, peak memory, and K5's and K5b's device ms a step
            (torch.profiler over one more step);
+  train_mla deepseek-v2-236b at full width (d 5120, 128 heads, MLA q . k
+           192 / v 128, 160 routed and 2 shared experts), depth cut 60 -> 1,
+           bf16, remat full: ``Model.train_loss`` and its gradients on one
+           batch of ``SyntheticLM``, B 1 x S 2048, one warm-up and 3 timed
+           (no optimizer step).  Gates: the loss finite; K5 2 and K5b 1
+           launches a step, all tensor-core (K5b at (192, 128)); the loss
+           within 1e-2 relative and each leaf's gradient within 5e-2 of max
+           |g| of the same step with ``FlashAttentionFn`` on the plain
+           versions.  Printed: ms a step, tokens/s, peak memory;
   train_lm the ``train_lm`` twin's lm-100m (12 x 768, 32k vocabulary)
            through ``Trainer``: B 8 x S 256, 60 steps, a checkpoint every
            20 into the gitignored ``build/``, a ``Membership`` peer failed
@@ -224,6 +234,7 @@ Imports nothing of jax or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -321,18 +332,24 @@ K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
 # is 3 bits finer, 2.5e-3 (H100 80GB HBM3, 700 W: 9.8e-4 at every fp16 case)
 K5_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 2e-5}
 # K5b (the flash backward): (B, S, dtype) causal at qwen2.5-3b's training
-# shape in three types and at lm-100m's heads (the train_lm twin); the
+# shape in three types, at lm-100m's heads (the train_lm twin) and at
+# deepseek-v2's MLA (train_mla: one batch of 2048 tokens); the
 # tolerance is max |d| / max |ref| per gradient (P and dS enter the
 # tensor cores' products rounded to the input type, FA2's recipe)
 LM100M_HEADS = (12, 4, 64)
 K5B_CASES = [((8, 1024, "bfloat16"), QWEN_HEADS),
              ((8, 1024, "float16"), QWEN_HEADS),
              ((8, 1024, "float32"), QWEN_HEADS),
-             ((8, 256, "bfloat16"), LM100M_HEADS)]
+             ((8, 256, "bfloat16"), LM100M_HEADS),
+             ((1, 2048, "bfloat16"), DEEPSEEK_HEADS)]
 K5B_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 K5_LSE_ATOL = 1e-4                 # K5's logsumexp (f32) against the plain one
-K5B_KERNELS = ("bwd_delta_kernel<", "bwd_dkdv_tc_kernel<", "bwd_dq_tc_kernel<",
-               "bwd_dkdv_simt_kernel<", "bwd_dq_simt_kernel<")
+K5B_KERNELS = ("bwd_prep_kernel<", "bwd_dkdv_wgmma_kernel<", "bwd_dq_wgmma_kernel<",
+               "bwd_delta_kernel<", "bwd_dkdv_simt_kernel<", "bwd_dq_simt_kernel<")
+# the tensor-core functions whose SASS must hold HGMMA: K5's forward and
+# K5b's two products, each in bf16 and fp16 at three head-dim pairs
+TC_FUNCTIONS = {"flash_tc_kernel": 6, "bwd_dkdv_wgmma_kernel": 6,
+                "bwd_dq_wgmma_kernel": 6}
 # train: qwen2.5-3b at full size, B 8 x S 1024 of SyntheticLM, one warm-up
 # step and TRAIN_STEPS timed ones on one repeated batch; the gate at full
 # width and TRAIN_GATE_LAYERS layers holds one step's loss and gradients
@@ -344,6 +361,13 @@ TRAIN_GRAD_BOUND = 5e-2            # max |d| / max |plain| per leaf (bf16)
 # train_lm: the twin's lm-100m at B 8 x S 256 for 60 steps, a checkpoint
 # every 20, a peer failed during step 30 (the run restores step 20)
 TRAIN_LM = dict(batch=8, seq=256, steps=60, save_every=20, fail_at=30)
+# train_mla: deepseek-v2-236b at full width, depth cut 60 -> 1 (the layer
+# holds 3.97 B parameters, ~5.0 B with the embedding and head: 10 GB of bf16
+# weights and 10 GB of gradients), one batch of B 1 x S 2048, a warm-up and
+# ``steps`` timed forward + backward passes.  No optimizer step: the port's
+# AdamW makes f32 temporaries of a whole leaf, ~15.9 GB each for the routed
+# experts' stacked weights
+TRAIN_MLA = dict(arch="deepseek-v2-236b", layers=1, batch=1, seq=2048, steps=3)
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
 K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
 K6_Y_REL = 1e-2                    # bf16 y: of max |y|
@@ -553,9 +577,10 @@ def rel_err(got, want) -> float:
 
 
 def sass_hgmma(lib_path):
-    """HGMMA instructions in each tensor-core K5 function of the built
-    library's SASS (``cuobjdump -sass``, the toolkit's or the copy in
-    Triton's package), by (dtype, hd), and the first one's text; ``None``
+    """HGMMA instructions in each tensor-core function of ``TC_FUNCTIONS``
+    (K5's forward, K5b's dK/dV and dQ kernels) in the built library's SASS
+    (``cuobjdump -sass``, the toolkit's or the copy in Triton's package),
+    by kernel, dtype and head dims, and the first one's text; ``None``
     where neither tool exists."""
     import re
     import subprocess
@@ -576,10 +601,11 @@ def sass_hgmma(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
+            kernel = next((k for k in TC_FUNCTIONS if k in name), None)
             fn = None
-            if "flash_tc_kernel" in name:
-                fn = ("bf16" if "bfloat16" in name else "fp16") + "/hd" \
-                    + re.search(r"Li(\d+)E", name).group(1)
+            if kernel:
+                fn = "/".join((kernel, "bf16" if "bfloat16" in name else "fp16",
+                               "x".join(re.findall(r"Li(\d+)E", name))))
                 counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
@@ -671,8 +697,12 @@ def main() -> int:
     emit({"phase": "device", **prov, "build_seconds": build.build_seconds,
           "ptxas": ptxas, "sass": sass})
     counts = sass and sass["hgmma_per_function"]
-    if sass is not None and (len(counts) != 6 or not all(counts.values())):
-        raise AssertionError(f"tensor-core K5 without HGMMA: {sass}")
+    if sass is not None and (
+            not all(counts.values()) or
+            {k: sum(f.startswith(k + "/") for f in counts)
+             for k in TC_FUNCTIONS} != TC_FUNCTIONS):
+        raise AssertionError(f"a tensor-core K5 or K5b function without "
+                             f"HGMMA: {sass}")
 
     # -- kernels -------------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -961,11 +991,12 @@ def main() -> int:
                      f"{heads_text(heads)}, bf16, {mask} ({site})",
             **{k: row[k] for k in summary}}
     k5b_rows = []
-    for (b, sl, dtype_name), (h5, hkv5, hd5) in K5B_CASES:
+    for (b, sl, dtype_name), heads in K5B_CASES:
+        h5, hkv5, hd5, dv5 = v_heads(heads)
         dtype = getattr(torch, dtype_name)
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for shape in ((b, sl, h5, hd5), (b, sl, hkv5, hd5),
-                                     (b, sl, hkv5, hd5), (b, sl, h5, hd5)))
+                                     (b, sl, hkv5, dv5), (b, sl, h5, dv5)))
         # K5 with lse (the training forward) against its plain version, and
         # its output equal to the serve path's
         o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
@@ -986,25 +1017,27 @@ def main() -> int:
         torch.cuda.synchronize()
         route5b = "tc" if fn5.bwd_tc_launches > tc_before else "simt"
         if route5b != ("simt" if dtype == torch.float32 else "tc") \
-                or route5b != fa_kernel.bwd_route(dtype, hd5):
-            raise AssertionError(f"K5b {dtype_name} at hd {hd5} took the "
-                                 f"{route5b} route")
+                or route5b != fa_kernel.bwd_route(dtype, hd5, dv5):
+            raise AssertionError(f"K5b {dtype_name} at hd {hd5} / {dv5} took "
+                                 f"the {route5b} route")
         plain5b = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
         errs = {name: rel_err(g, w)
                 for name, g, w in zip(("dq", "dk", "dv"), got5b, plain5b)}
         if not max(errs.values()) <= K5B_TOL[dtype_name]:
             raise AssertionError(f"K5b at {(b, sl, dtype_name)}, {h5}/{hkv5} "
-                                 f"heads, hd {hd5}: {errs}")
+                                 f"heads, hd {hd5} / {dv5}: {errs}")
         pairs = sl * (sl + 1) // 2
-        # q, k, v, o, dO and lse read once, dq, dk, dv written once; the
-        # five products over the causal pairs
+        # q, k, v, o, dO and lse read once (v, o and dO at the v head dim),
+        # dq, dk, dv written once; the five products over the causal pairs:
+        # q K^T, dS^T q and dS K at q . k's width, dO V^T and P^T dO at v's
         size = q.element_size()
         b5b, by5b = bound(size * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                                   + 2 * o.numel()) + 4 * lse.numel(),
-                          5 * 2 * b * h5 * hd5 * pairs,
+                          2 * b * h5 * pairs * (3 * hd5 + 2 * dv5),
                           FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k5b_rows.append({
-            "B": b, "S": sl, "H": h5, "Hkv": hkv5, "hd": hd5, "causal": True,
+            "B": b, "S": sl, "H": h5, "Hkv": hkv5, "hd": hd5, "dv": dv5,
+            "causal": True,
             "dtype": dtype_name, "kernel_route": route5b,
             "k5_lse_max_abs_err": lse_err,
             "max_abs_err": max(float((g.float() - w.float()).abs().max())
@@ -1034,6 +1067,10 @@ def main() -> int:
         "shape": f"B=8, S=256, {heads_text(LM100M_HEADS)}, bf16, causal "
                  "(the train_lm twin's lm-100m, a layer)",
         **{key: k5b_rows[3][key] for key in summary + K5B_SUMMARY}}
+    results["K5b"]["mla"] = {
+        "shape": f"B=1, S=2048, {heads_text(DEEPSEEK_HEADS)}, bf16, causal "
+                 "(deepseek-v2 training, a layer)",
+        **{key: k5b_rows[4][key] for key in summary + K5B_SUMMARY}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
           "K3": k3_rows, "K5": k5_rows, "K5b": k5b_rows, "K6_f32": k6_f32})
@@ -1197,6 +1234,9 @@ def main() -> int:
     train = train_phase(dev)
     results["K5b"]["launches"] = train["K5b"]
     results["K5"]["launches_train"] = train["K5"]
+    mla = train_mla_phase(dev)
+    results["K5"]["launches_train_mla"] = mla["K5"]
+    results["K5b"]["launches_train_mla"] = mla["K5b"]
     train_lm_counts = train_lm_phase(dev)
     results["K5"]["launches_train_lm"] = train_lm_counts["K5"]
     results["K5b"]["launches_train_lm"] = train_lm_counts["K5b"]
@@ -3064,6 +3104,29 @@ def _value_and_grad(model, params, batch):
     return loss.detach(), torch.autograd.grad(loss, xs)
 
 
+@contextlib.contextmanager
+def _routing(layers, replay=None):
+    """Record the expert ids of every ``layers._top_k`` call (the MoE
+    router's) in a list, yielded; given ``replay`` (such a list), return
+    those ids in call order instead, each with its probabilities (so the
+    gate weights keep their gradient)."""
+    real, calls = layers._top_k, []
+
+    def top_k(probs, k):
+        if replay is None:
+            vals, ids = real(probs, k)
+        else:
+            ids = replay[len(calls)]
+            vals = probs.gather(-1, ids)
+        calls.append(ids)
+        return vals, ids
+    layers._top_k = top_k
+    try:
+        yield calls
+    finally:
+        layers._top_k = real
+
+
 def _plain_flash_fn():
     """``FlashAttentionFn`` with the kernels' plain versions on any device
     (the reference of the train gate; the port never runs it on the
@@ -3208,6 +3271,131 @@ def train_phase(dev) -> dict:
                    "worst_leaf_rel_err": leaf_errs[worst],
                    "bound": TRAIN_GRAD_BOUND},
           "nvidia_smi": _smi()})
+    return counts
+
+
+def train_mla_phase(dev) -> dict:
+    """deepseek-v2 (MLA: q . k 192, v 128) at full width and ``TRAIN_MLA``
+    depth: ``train_loss`` and its gradients through K5 and K5b on the card,
+    timed; the launch gate; the same step against ``FlashAttentionFn`` on
+    the plain versions.  Returns the K5 / K5b counts of the timed passes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+
+    t = TRAIN_MLA
+    cfg = get_config(t["arch"]).with_overrides(num_layers=t["layers"])
+    dqk = cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim
+    dv = cfg.mla_v_head_dim
+    if cfg.dtype != "bfloat16" or (dqk, dv) != (192, 128) \
+            or fa_kernel.bwd_route(torch.bfloat16, dqk, dv) != "tc":
+        raise AssertionError(f"{cfg.name}: {cfg.dtype} at q.k {dqk} / v {dv}")
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=t["seq"],
+                                  global_batch=t["batch"], seed=SEED))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    # a layer runs K5 in its forward and, under remat, again in the
+    # backward's recompute; K5b once
+    k5 = cfg.num_layers * (1 if cfg.remat == "none" else 2)
+    per_step = {"K5": k5, "K5_tc": k5, "K5b": cfg.num_layers,
+                "K5b_tc": cfg.num_layers}
+    fn = fa_ops.flash_attention
+    _zero_k5(fn)
+    times, losses, first = [], [], None
+    for i in range(1 + t["steps"]):
+        grads_k = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_k, grads_k = _value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss_k))
+        if i == 0:
+            first = _k5_counts(fn)
+    counts = _k5_counts(fn)
+    peak = torch.cuda.max_memory_allocated()
+    if first != per_step or counts != {k: n * (1 + t["steps"])
+                                       for k, n in per_step.items()}:
+        raise AssertionError(f"train_mla: launch counts {first} in the first "
+                             f"pass, {counts} in all, want {per_step} a pass")
+    if not np.isfinite(losses).all() \
+            or not all(bool(torch.isfinite(g).all()) for g in grads_k):
+        raise AssertionError(f"train_mla: losses {losses}, or a gradient "
+                             f"not finite")
+
+    # the gate: the same step with FlashAttentionFn on the plain versions
+    # (no kernel may launch there) and the router's top-k choices of the
+    # kernels' step replayed.  Routing is discontinuous: K5's bf16 output
+    # differs from the plain forward's by an ulp here and there, which
+    # moves a token whose 6th and 7th expert nearly tie to another expert
+    # with its whole gradient.  The plain step with its own routing is run
+    # too and reported (``unpinned``), with the tokens whose experts moved.
+    names = [n for n, _ in _paths(params)]
+    del grads_k
+    with _routing(layers) as kernel_ids:
+        loss_k, grads_k = _value_and_grad(model, params, batch)
+    launched = _k5_counts(fn)
+    saved = layers.FlashAttentionFn
+    layers.FlashAttentionFn = _plain_flash_fn()
+    try:
+        with _routing(layers) as own_ids:
+            loss_u, grads_u = _value_and_grad(model, params, batch)
+        unpinned = {n: rel_err(gk, gu) for n, gk, gu in zip(names, grads_k,
+                                                            grads_u)}
+        del grads_u
+        with _routing(layers, replay=kernel_ids):
+            loss_p, grads_p = _value_and_grad(model, params, batch)
+    finally:
+        layers.FlashAttentionFn = saved
+    if _k5_counts(fn) != launched:
+        raise AssertionError("train_mla gate: a kernel ran in the plain step")
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(kernel_ids, own_ids))
+    leaf_errs = {n: rel_err(gk, gp) for n, gk, gp in zip(names, grads_k,
+                                                         grads_p)}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(leaf_errs, key=leaf_errs.get)
+    step_s = float(np.median(times[1:]))
+    row = {"phase": "train_mla", "model": cfg.name, "params": n_params,
+           "layers": cfg.num_layers, "batch": t["batch"], "seq": t["seq"],
+           "remat": cfg.remat, "dtype": cfg.dtype, "head_dims": [dqk, dv],
+           "losses": losses, "step_ms": [x * 1e3 for x in times],
+           "ms_per_step_median": step_s * 1e3,
+           "tokens_per_s": t["batch"] * t["seq"] / step_s,
+           "max_memory_allocated_gib": peak / 2**30,
+           "launches_per_step": first, "launches": counts,
+           "gate": {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+                    "loss_rel": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                    "worst_leaf": worst,
+                    "worst_leaf_rel_err": leaf_errs[worst],
+                    "bound": TRAIN_GRAD_BOUND, "leaf_rel_err": leaf_errs,
+                    "routing": "the kernels' step's top-k replayed",
+                    "unpinned": {
+                        "loss_plain": float(loss_u),
+                        "tokens_whose_experts_moved": moved,
+                        "of_tokens": sum(a.shape[0] * a.shape[1]
+                                         for a in kernel_ids),
+                        "leaf_rel_err": unpinned}},
+           "nvidia_smi": _smi()}
+    emit(row)
+    del params, grads_k, grads_p, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not loss_rel <= TRAIN_LOSS_RTOL \
+            or not leaf_errs[worst] <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"train_mla gate: loss {float(loss_k)} vs "
+                             f"{float(loss_p)}, worst leaf {worst} "
+                             f"{leaf_errs[worst]}")
     return counts
 
 

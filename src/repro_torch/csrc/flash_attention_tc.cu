@@ -75,16 +75,12 @@
 //     tile a block and any Sq; it does not even out the SMs' work.
 // The tensor maps are built on the host with cuTensorMapEncodeTiled, found
 // through cudaGetDriverEntryPoint (no -lcuda), and passed as
-// __grid_constant__ kernel parameters.
-
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+// __grid_constant__ kernel parameters; those helpers, the barriers and the
+// wgmma wrappers live in hopper.cuh, shared with K5b's backward.
 
 #include <cmath>
-#include <cstdint>
-#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -92,7 +88,6 @@ constexpr int kBM = 64;              // query rows per block (one warpgroup)
 constexpr int kBN = 64;              // key positions per tile
 constexpr int kThreads = 128;
 constexpr int kStages = 2;           // K/V ring depth
-constexpr int kBoxCols = 64;         // a 128-byte swizzled row of 16-bit values
 constexpr int kBoxBytes = 64 * 128;  // one 64-row box
 constexpr float kNeg = -1e30f;       // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
@@ -106,153 +101,6 @@ struct Layout {
   static constexpr int kSmem =
       kQkTile * (1 + kStages) + kVTile * kStages + 1024;       // + alignment
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map, coordinates innermost first
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most N committed wgmma groups are in flight; groups
-// complete in the order they were committed.  N is a constant, so ptxas
-// can follow the pipeline and keep the wgmmas asynchronous.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving register reads or writes across a wgmma
-// wait: the accumulators are written asynchronously
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define WG_D32                                                                                \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_OUT32(d)                                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) . B (16 x 64,
-// K-major in shared memory)
-#define WGMMA_SS(TY)                                                               \
-  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"                   \
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_D32 \
-               ", %32, %33, p, 1, 1, 0, 0;\n\t}"                                    \
-               : WG_OUT32(d)                                                        \
-               : "l"(da), "l"(db), "r"(scale_d))
-
-// d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, MN-major in
-// shared memory: the V tile's rows are key positions)
-#define WGMMA_RS(TY)                                                                         \
-  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"                             \
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_D32           \
-               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"                                \
-               : WG_OUT32(d)                                                                  \
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
-
-template <typename T>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    WGMMA_SS("bf16");
-  } else {
-    WGMMA_SS("f16");
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    WGMMA_RS("bf16");
-  } else {
-    WGMMA_RS("f16");
-  }
-}
-
-// (a, b) -> the 16-bit pair hi = T(a, b) and lo = T(a - hi, b - hi), as
-// wgmma A-operand registers (the lower column in the low half)
-template <typename T>
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-  } else {
-    const __half2 h = __floats2half2_rn(a, b);
-    const float2 hf = __half22float2(h);
-    const __half2 l = __floats2half2_rn(a - hf.x, b - hf.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-  }
-}
 
 // Register layout of a 64 x 64 f32 accumulator d[32] (and of S): thread t
 // of the warpgroup, warp w = t / 32, lane l, holds rows 16 w + l / 4 (i = 0)
@@ -508,61 +356,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, hd) contiguous 16-bit tensor -> a map of 64 x 64 boxes over
-// (hd, heads, S, B), 128-byte swizzle, zeros past every edge (columns past
-// hd too: the map's inner extent is hd, the boxes tile the kernel's width).  The strides
-// (2 hd bytes and up) are multiples of 16 for hd % 8 == 0.
-int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int hd, int heads,
-             int seq, int batch) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(heads) * hd * 2,
-                                 static_cast<cuuint64_t>(seq) * heads * hd * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res =
-      encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <typename T, int HDQK, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
            int Sk, int H, int Hkv, int hd, int hdv, float scale, int causal, cudaStream_t stream) {
-  const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  constexpr CUtensorMapDataType type = map_type<T>();
   CUtensorMap qm, km, vm;
-  int err = make_map(&qm, type, q, hd, H, Sq, B);
-  if (!err) err = make_map(&km, type, k, hd, Hkv, Sk, B);
-  if (!err) err = make_map(&vm, type, v, hdv, Hkv, Sk, B);
+  int err = make_map(&qm, type, q, hd, H, Sq, B, kBM);
+  if (!err) err = make_map(&km, type, k, hd, Hkv, Sk, B, kBN);
+  if (!err) err = make_map(&vm, type, v, hdv, Hkv, Sk, B, kBN);
   if (err) return err;
   const int smem = Layout<HDQK, HDV>::kSmem;
   const cudaError_t attr = cudaFuncSetAttribute(

@@ -16,10 +16,11 @@ scores, f32 (B, H, Sq), which K5b reads back.
 K5b ``flash_attention_bwd_cuda`` has no TPU counterpart (``repro``
 differentiates its jnp flash path with ``jax.grad``): it takes the
 forward's q, k, v, o, lse and dO and returns dq, dk, dv in three
-launches (D = rowsum(dO o), dK/dV, dQ), on the tensor cores (mma.sync)
-for bf16 and fp16 and on the CUDA cores for f32 (``bwd_route``), at
-(hd, v hd) in ``BWD_HEAD_DIMS`` only, causal only with Sq == Sk; anything
-else raises ``ValueError`` before a launch.  The design notes sit in the
+launches (D = rowsum(dO o), dK/dV, dQ), on the tensor cores (wgmma, TMA)
+for bf16 and fp16 at (hd, v hd) in ``BWD_HEAD_DIMS`` (MLA's (192, 128)
+among them) and on the CUDA cores for f32 at ``BWD_SIMT_HEAD_DIMS``
+(``bwd_route``), causal only with Sq == Sk; anything else raises
+``ValueError`` before a launch.  The design notes sit in the
 CUDA sources.  Outputs and scratch are allocated here with
 ``torch.empty``; the kernels launch on the current stream and do not
 synchronise.
@@ -40,7 +41,8 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128),
 TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))  # tensor cores'
 BQ = 64                             # query rows per block (both kernels)
-BWD_HEAD_DIMS = ((64, 64), (128, 128))            # K5b's, on both routes
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))  # K5b's tensor cores'
+BWD_SIMT_HEAD_DIMS = ((64, 64), (128, 128))          # K5b's f32 kernels'
 
 
 def route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
@@ -52,16 +54,19 @@ def route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
 
 
 def bwd_route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
-    """K5b's route: ``"tc"`` for bf16/fp16, ``"simt"`` for f32, at (dqk,
-    dv) in ``BWD_HEAD_DIMS`` (dv defaults to dqk); raises ``ValueError``
-    for any other type or head dims (hd 112, MLA's (192, 128), 16, 32:
-    ROADMAP queue 2)."""
+    """K5b's route: ``"tc"`` for bf16/fp16 at (dqk, dv) in
+    ``BWD_HEAD_DIMS``, ``"simt"`` for f32 at ``BWD_SIMT_HEAD_DIMS`` (dv
+    defaults to dqk); raises ``ValueError`` for any other type or head
+    dims (hd 112, 16, 32, and f32 at MLA's (192, 128))."""
     dv = dqk if dv is None else dv
-    if dtype not in _DTYPES or (dqk, dv) not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention backward: no kernel for {dtype} "
-                         f"at head dims (q.k {dqk}, v {dv}); it takes "
-                         f"{list(_DTYPES)} at {BWD_HEAD_DIMS}")
-    return "simt" if dtype == torch.float32 else "tc"
+    if dtype in TC_DTYPES and (dqk, dv) in BWD_HEAD_DIMS:
+        return "tc"
+    if dtype == torch.float32 and (dqk, dv) in BWD_SIMT_HEAD_DIMS:
+        return "simt"
+    raise ValueError(f"flash_attention backward: no kernel for {dtype} at "
+                     f"head dims (q.k {dqk}, v {dv}); it takes {TC_DTYPES} "
+                     f"at {BWD_HEAD_DIMS} and float32 at "
+                     f"{BWD_SIMT_HEAD_DIMS}")
 
 
 def _check(name: str, *ts: torch.Tensor) -> None:
@@ -121,7 +126,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool):
     """K5b: the gradients (dq, dk, dv) of ``flash_attention_cuda`` at
     (q, k, v), from its output ``o``, its ``lse`` and the output gradient
-    ``do`` (B,Sq,H,hd), each in q's dtype; dk and dv summed over each kv
+    ``do`` (B,Sq,H,dv), each in q's dtype; dk and dv summed over each kv
     head's query heads."""
     dev = q.device
     _check("flash_attention backward", q, k, v, o, do)
@@ -132,7 +137,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     _, sk, hkv, _ = k.shape
     hdv = v.shape[3]
     route_ = bwd_route(q.dtype, hd, hdv)
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd \
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd \
             or hkv < 1 or h % hkv or o.shape != (b, sq, h, hdv) \
             or do.shape != o.shape:
         raise ValueError(f"flash_attention backward: mismatched shapes "
@@ -152,11 +157,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     entry = "flash_attention_bwd_launch"
     if route_ == "tc":
         entry = "flash_attention_bwd_tc_launch"
-        if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):  # 16-byte loads
+        if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):  # TMA, 16 B loads
             raise ValueError("flash_attention backward: the tensor-core "
                              "route needs 16-byte-aligned q, k, v, o, dO")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    # the f32 route's D (B, H, Sq); the tensor cores' lse * log2 e and D,
+    # rows padded to a multiple of BQ for the TMA
+    delta = torch.empty((2, b, h, -(-sq // BQ) * BQ) if route_ == "tc"
+                        else (b, h, sq), dtype=torch.float32, device=dev)
     build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, sq, sk, h,

@@ -663,19 +663,20 @@ K5B_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", [
-    (2, 100, 100, 4, 2, 64, True),          # ragged tiles, g 2
-    (1, 70, 130, 4, 1, 128, False),         # Sq != Sk, no mask, g 4
-    (2, 130, 130, 8, 2, 128, True),
-    (1, 256, 256, 12, 4, 64, True),         # lm-100m's heads
-    (1, 1024, 1024, 16, 2, 128, True),      # qwen2.5-3b's heads
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,hv,causal", [
+    (2, 100, 100, 4, 2, 64, 64, True),      # ragged tiles, g 2
+    (1, 70, 130, 4, 1, 128, 128, False),    # Sq != Sk, no mask, g 4
+    (2, 130, 130, 8, 2, 128, 128, True),
+    (1, 256, 256, 12, 4, 64, 64, True),     # lm-100m's heads
+    (1, 1024, 1024, 16, 2, 128, 128, True),  # qwen2.5-3b's heads
+    (1, 200, 200, 128, 128, 192, 128, True),  # deepseek-v2's MLA, ragged
 ])
 def test_flash_attention_backward_kernel_equals_plain(cuda, dtype, b, sq, sk,
-                                                      h, hkv, hd, causal):
+                                                      h, hkv, hd, hv, causal):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + hd)
     q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
                    for s in ((b, sq, h, hd), (b, sk, hkv, hd),
-                             (b, sk, hkv, hd), (b, sq, h, hd)))
+                             (b, sk, hkv, hv), (b, sq, h, hv)))
     o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
                                             with_lse=True)
     ro, rlse = fa_ref.flash_attention_fwd_ref(q, k, v, causal=causal)
@@ -683,11 +684,18 @@ def test_flash_attention_backward_kernel_equals_plain(cuda, dtype, b, sq, sk,
     assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal=causal))
     fn = fa_ops.flash_attention
     before = fn.bwd_launches, fn.bwd_tc_launches
+    if dtype == torch.float32 and (hd, hv) == (192, 128):
+        # the f32 kernels have no MLA instantiation: refused before a launch
+        with pytest.raises(ValueError, match="no kernel"):
+            fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               causal=causal)
+        assert (fn.bwd_launches, fn.bwd_tc_launches) == before
+        return
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = fa_ops.FlashAttentionFn.apply(*leaves, causal)
     got = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    tc = fa_kernel.bwd_route(dtype, hd) == "tc"
+    tc = fa_kernel.bwd_route(dtype, hd, hv) == "tc"
     assert tc == (dtype != torch.float32)
     assert (fn.bwd_launches, fn.bwd_tc_launches) == (before[0] + 1,
                                                      before[1] + tc)
@@ -706,8 +714,8 @@ def test_flash_attention_backward_kernel_equals_plain(cuda, dtype, b, sq, sk,
 def test_flash_attention_backward_refuses_before_a_launch(cuda):
     fn = fa_ops.flash_attention
     before = fn.bwd_launches
-    for hd, hdv, dtype in ((112, 112, torch.bfloat16), (192, 128, torch.bfloat16),
-                           (32, 32, torch.float32)):
+    for hd, hdv, dtype in ((112, 112, torch.bfloat16), (16, 16, torch.bfloat16),
+                           (32, 32, torch.float32), (192, 128, torch.float32)):
         q = torch.randn((1, 8, 2, hd), device=cuda).to(dtype)
         v = torch.randn((1, 8, 2, hdv), device=cuda).to(dtype)
         o = torch.randn((1, 8, 2, hdv), device=cuda).to(dtype)

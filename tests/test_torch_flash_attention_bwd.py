@@ -3,7 +3,8 @@ the forward's o and lse), against torch.autograd through K5's plain
 version and against ``jax.vjp`` of repro's jnp flash attention
 (``repro.models.layers.flash_attention``, what repro's training
 differentiates) in f32: GQA g 1, 2 and 4, causal and not, the Sq = Sk
-that training uses, a non-causal Sq != Sk, and MLA's narrower v.  Then
+that training uses, a non-causal Sq != Sk, and MLA's narrower v (also at
+deepseek-v2's q . k 192 / v 128, the widths K5b's tensor cores take).  Then
 ``flash_attention_fwd_ref``'s lse, the wiring of ``FlashAttentionFn`` and
 of ``layers.flash_attention`` on the CPU (no kernel counter moves), and
 K5b's route function.  The on-card case is in ``test_torch_cuda.py``
@@ -39,6 +40,7 @@ CASES = [  # b, sq, sk, h, hkv, hd, hv, causal
     (1, 80, 80, 8, 2, 32, 32, False),
     (1, 48, 144, 4, 1, 32, 32, False),      # Sq != Sk, no mask
     (1, 64, 64, 4, 4, 24, 16, True),        # MLA: v narrower than q . k
+    (1, 40, 40, 2, 2, 192, 128, True),      # deepseek-v2's MLA widths
 ]
 
 
@@ -126,11 +128,14 @@ def test_bwd_route_and_refusals():
         for hd in (64, 128):
             assert fa_kernel.bwd_route(dt, hd) == "tc"
             assert fa_kernel.bwd_route(dt, hd, hd) == "tc"
+        assert fa_kernel.bwd_route(dt, 192, 128) == "tc"    # MLA
     assert fa_kernel.bwd_route(torch.float32, 128) == "simt"
     assert fa_kernel.bwd_route(torch.float32, 64, 64) == "simt"
-    for dt, dqk, dv in ((torch.bfloat16, 112, 112), (torch.bfloat16, 192, 128),
+    # f32 has no MLA backward: the SIMT kernels take hd 64 and 128 only
+    for dt, dqk, dv in ((torch.bfloat16, 112, 112), (torch.bfloat16, 16, 16),
                         (torch.float32, 192, 128), (torch.float32, 16, 16),
-                        (torch.float16, 32, 32), (torch.int8, 64, 64)):
+                        (torch.float16, 32, 32), (torch.bfloat16, 128, 192),
+                        (torch.int8, 64, 64)):
         with pytest.raises(ValueError, match="no kernel"):
             fa_kernel.bwd_route(dt, dqk, dv)
     cpu = torch.zeros((1, 4, 2, 64))
