@@ -21,8 +21,9 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            output equal to the serve path's) and K5b (the flash backward,
            csrc/flash_attention_bwd.cu: qwen2.5-3b's training shape, B 8,
            S 1024, 16/2 heads of hd 128, causal, in bf16, fp16 and f32,
-           lm-100m's, B 8, S 256, 12/4 of hd 64, and deepseek-v2's, B 1,
-           S 2048, 128/128 of q . k 192 and v 128, in bf16; max |d| / max
+           lm-100m's, B 8, S 256, 12/4 of hd 64, deepseek-v2's, B 1,
+           S 2048, 128/128 of q . k 192 and v 128, and qwen3-moe's, B 4,
+           S 1024, 64/4 of hd 128, in bf16; max |d| / max
            |ref| per gradient within 2e-2, 5e-3 and 1e-4; each case's route
            checked against ``kernel.bwd_route``; timed in turns with SDPA's
            backward pinned to its fastest backend; the bound is its five
@@ -212,12 +213,40 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
   train_mla deepseek-v2-236b at full width (d 5120, 128 heads, MLA q . k
            192 / v 128, 160 routed and 2 shared experts), depth cut 60 -> 1,
            bf16, remat full: ``Model.train_loss`` and its gradients on one
-           batch of ``SyntheticLM``, B 1 x S 2048, one warm-up and 3 timed
-           (no optimizer step).  Gates: the loss finite; K5 2 and K5b 1
-           launches a step, all tensor-core (K5b at (192, 128)); the loss
-           within 1e-2 relative and each leaf's gradient within 5e-2 of max
-           |g| of the same step with ``FlashAttentionFn`` on the plain
-           versions.  Printed: ms a step, tokens/s, peak memory;
+           batch of ``SyntheticLM``, B 1 x S 2048, one warm-up and 3 timed.
+           Gates: the loss finite; K5 2 and K5b 1 launches a step, all
+           tensor-core (K5b at (192, 128)); the loss within 1e-2 relative
+           and each leaf's gradient within 5e-2 of max |g| of the same step
+           with ``FlashAttentionFn`` on the plain versions.  Printed: ms a
+           step, tokens/s, peak memory.  Then (``train_mla_step``) one
+           ``make_train_step`` step with bf16 moments, AdamW updating the
+           stacked experts in pieces: its ms, peak memory, launches (K5 2,
+           K5b 1), the parameters finite;
+  train_moe_ep qwen3-moe-235b-a22b at full width (d 4096, 64 / 4 heads,
+           128 experts top-8, moe_d_ff 1536), depth cut 94 -> 2, bf16,
+           bf16 moments, remat full, ``moe_impl="ep"`` under
+           ``mesh_context(make_host_mesh(4, [cuda:0] * 4))`` (data 1,
+           model 4): B 4 x S 1024 of ``SyntheticLM`` (T_loc 1024, c2 2560,
+           c3 320).  Gates: (1) one layer's ``moe_block_ep`` within 2e-2 of
+           max |ref| of ``moe_block`` on the same bf16 input at a capacity
+           factor of E / k (neither drops a slot), ``moe_block``'s top-k
+           replayed into the shards; (2) the EP step's loss and gradients
+           against the same step with ``FlashAttentionFn`` on the plain
+           versions, the router's choices replayed, under the train
+           bounds; the timed steps: a warm-up and 3 EP steps, then as many
+           without a mesh (the GSPMD block), each with K5 4 and K5b 2
+           tensor-core launches a step, the EP losses falling; (3) one
+           AdamW update in pieces of 2^16 values bit-equal to one on whole
+           leaves.  Printed: losses, ms a step, tokens/s, peak memory, the
+           slots each layer drops (EP: past c2 and past c3; GSPMD: past
+           its cap), and one more profiled step of each (busy and idle
+           share, K5's and K5b's ms, the top kernels);
+  collectives the EDRA collectives over 8 entries of cuda:0: all-gather
+           and broadcast (sources 0, 3, 7) equal to the plain results, the
+           all-reduce within 1e-5 of the plain sum, eight batch shards'
+           gradients synced by ``edra_allreduce`` / 8 within 1e-5 of the
+           whole-batch gradient; an all-reduce of 2^24 f32 values a peer
+           timed beside ``torch.stack(...).sum(0)``;
   train_lm the ``train_lm`` twin's lm-100m (12 x 768, 32k vocabulary)
            through ``Trainer``: B 8 x S 256, 60 steps, a checkpoint every
            20 into the gitignored ``build/``, a ``Membership`` peer failed
@@ -332,8 +361,9 @@ K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
 # is 3 bits finer, 2.5e-3 (H100 80GB HBM3, 700 W: 9.8e-4 at every fp16 case)
 K5_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 2e-5}
 # K5b (the flash backward): (B, S, dtype) causal at qwen2.5-3b's training
-# shape in three types, at lm-100m's heads (the train_lm twin) and at
-# deepseek-v2's MLA (train_mla: one batch of 2048 tokens); the
+# shape in three types, at lm-100m's heads (the train_lm twin), at
+# deepseek-v2's MLA (train_mla: one batch of 2048 tokens) and at
+# qwen3-moe's heads (train_moe_ep: B 4 x S 1024); the
 # tolerance is max |d| / max |ref| per gradient (P and dS enter the
 # tensor cores' products rounded to the input type, FA2's recipe)
 LM100M_HEADS = (12, 4, 64)
@@ -341,7 +371,8 @@ K5B_CASES = [((8, 1024, "bfloat16"), QWEN_HEADS),
              ((8, 1024, "float16"), QWEN_HEADS),
              ((8, 1024, "float32"), QWEN_HEADS),
              ((8, 256, "bfloat16"), LM100M_HEADS),
-             ((1, 2048, "bfloat16"), DEEPSEEK_HEADS)]
+             ((1, 2048, "bfloat16"), DEEPSEEK_HEADS),
+             ((4, 1024, "bfloat16"), QWEN3_MOE_HEADS)]
 K5B_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 K5_LSE_ATOL = 1e-4                 # K5's logsumexp (f32) against the plain one
 K5B_KERNELS = ("bwd_prep_kernel<", "bwd_dkdv_wgmma_kernel<", "bwd_dq_wgmma_kernel<",
@@ -364,10 +395,25 @@ TRAIN_LM = dict(batch=8, seq=256, steps=60, save_every=20, fail_at=30)
 # train_mla: deepseek-v2-236b at full width, depth cut 60 -> 1 (the layer
 # holds 3.97 B parameters, ~5.0 B with the embedding and head: 10 GB of bf16
 # weights and 10 GB of gradients), one batch of B 1 x S 2048, a warm-up and
-# ``steps`` timed forward + backward passes.  No optimizer step: the port's
-# AdamW makes f32 temporaries of a whole leaf, ~15.9 GB each for the routed
-# experts' stacked weights
+# ``steps`` timed forward + backward passes, then one ``make_train_step``
+# step with bf16 moments (20 GB): AdamW updates the routed experts' stacked
+# leaf (3.77 B values) in pieces of 2^26, where a whole-leaf update would
+# make f32 temporaries of ~15.9 GB each
 TRAIN_MLA = dict(arch="deepseek-v2-236b", layers=1, batch=1, seq=2048, steps=3)
+# train_moe_ep: qwen3-moe-235b-a22b at full width, depth cut 94 -> 2 (two
+# layers and the embedding and head hold 6.22 B parameters: bf16 weights,
+# gradients and bf16 moments take 49.8 GB of the 80 GB card, the step's
+# activations and AdamW's pieces a few GB more), B 4 x S 1024 of SyntheticLM on
+# the mesh (data 1, model 4) of four cuda:0 entries: T_loc 1024, c2 2560,
+# c3 320 at cf 1.25; a warm-up and ``steps`` timed EP steps, then as many
+# without a mesh (the GSPMD block), on one repeated batch
+TRAIN_MOE_EP = dict(arch="qwen3-moe-235b-a22b", layers=2, batch=4, seq=1024,
+                    model_axis=4, steps=3)
+EP_EXCHANGE_BOUND = 2e-2           # EP vs moe_block, of max |ref| (bf16)
+# collectives: the EDRA tree over eight entries of cuda:0 (3 rounds), and
+# one all-reduce of a gradient of COLLECTIVE_VALUES f32 values a peer timed
+COLLECTIVE_PEERS = 8
+COLLECTIVE_VALUES = 1 << 24
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
 K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
 K6_Y_REL = 1e-2                    # bf16 y: of max |y|
@@ -1071,6 +1117,10 @@ def main() -> int:
         "shape": f"B=1, S=2048, {heads_text(DEEPSEEK_HEADS)}, bf16, causal "
                  "(deepseek-v2 training, a layer)",
         **{key: k5b_rows[4][key] for key in summary + K5B_SUMMARY}}
+    results["K5b"]["moe"] = {
+        "shape": f"B=4, S=1024, {heads_text(QWEN3_MOE_HEADS)}, bf16, causal "
+                 "(qwen3-moe training, a layer)",
+        **{key: k5b_rows[5][key] for key in summary + K5B_SUMMARY}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
           "K3": k3_rows, "K5": k5_rows, "K5b": k5b_rows, "K6_f32": k6_f32})
@@ -1237,6 +1287,12 @@ def main() -> int:
     mla = train_mla_phase(dev)
     results["K5"]["launches_train_mla"] = mla["K5"]
     results["K5b"]["launches_train_mla"] = mla["K5b"]
+    results["K5"]["launches_train_mla_step"] = mla["step"]["K5"]
+    results["K5b"]["launches_train_mla_step"] = mla["step"]["K5b"]
+    moe_ep_counts = train_moe_ep_phase(dev)
+    results["K5"]["launches_train_moe_ep"] = moe_ep_counts["K5"]
+    results["K5b"]["launches_train_moe_ep"] = moe_ep_counts["K5b"]
+    collectives_phase(dev)
     train_lm_counts = train_lm_phase(dev)
     results["K5"]["launches_train_lm"] = train_lm_counts["K5"]
     results["K5b"]["launches_train_lm"] = train_lm_counts["K5b"]
@@ -3278,7 +3334,9 @@ def train_mla_phase(dev) -> dict:
     """deepseek-v2 (MLA: q . k 192, v 128) at full width and ``TRAIN_MLA``
     depth: ``train_loss`` and its gradients through K5 and K5b on the card,
     timed; the launch gate; the same step against ``FlashAttentionFn`` on
-    the plain versions.  Returns the K5 / K5b counts of the timed passes."""
+    the plain versions; then one ``make_train_step`` step (AdamW in
+    pieces).  Returns the K5 / K5b counts of the timed passes, and the
+    step's under ``"step"``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -3286,6 +3344,8 @@ def train_mla_phase(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import Model
     from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
 
     t = TRAIN_MLA
     cfg = get_config(t["arch"]).with_overrides(num_layers=t["layers"])
@@ -3388,7 +3448,7 @@ def train_mla_phase(dev) -> dict:
                         "leaf_rel_err": unpinned}},
            "nvidia_smi": _smi()}
     emit(row)
-    del params, grads_k, grads_p, batch
+    del grads_k, grads_p
     gc.collect()
     torch.cuda.empty_cache()
     if not loss_rel <= TRAIN_LOSS_RTOL \
@@ -3396,7 +3456,372 @@ def train_mla_phase(dev) -> dict:
         raise AssertionError(f"train_mla gate: loss {float(loss_k)} vs "
                              f"{float(loss_p)}, worst leaf {worst} "
                              f"{leaf_errs[worst]}")
-    return counts
+
+    # one optimizer step at full width: AdamW in pieces, bf16 moments
+    opt_cfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, total_steps=1000,
+                              moment_dtype=cfg.opt_dtype)
+    opt = adamw.init_state(params, opt_cfg)
+    step = make_train_step(model, TrainConfig(opt=opt_cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_k5(fn)
+    t0 = time.perf_counter()
+    params, opt, met = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_counts = _k5_counts(fn)
+    finite = all(bool(torch.isfinite(x).all()) for x in _leaves(params))
+    row = {"phase": "train_mla_step", "model": cfg.name, "params": n_params,
+           "layers": cfg.num_layers, "moment_dtype": opt_cfg.moment_dtype,
+           "adamw_piece_values": adamw._PIECE, "step_ms": step_ms,
+           "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+           / 2**30, "launches": step_counts, "params_finite": finite,
+           "nvidia_smi": _smi()}
+    emit(row)
+    del params, opt, met, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if step_counts != per_step or not finite \
+            or not math.isfinite(row["loss"]):
+        raise AssertionError(f"train_mla step: launches {step_counts}, want "
+                             f"{per_step}; finite {finite}, loss {row['loss']}")
+    return {**counts, "step": step_counts}
+
+
+def _gspmd_drops(ids, cfg) -> int:
+    """Slots ``layers.moe_block`` drops for one layer's top-k ids (B, S,
+    k): each batch row keeps an expert's first ``cap`` slots."""
+    import torch
+    b, s, k = ids.shape
+    cap = max(1, int(math.ceil(s * k * cfg.moe_capacity_factor
+                               / cfg.moe_experts)))
+    counts = torch.zeros((b, cfg.moe_experts), dtype=torch.int64,
+                         device=ids.device)
+    counts.scatter_add_(1, ids.reshape(b, s * k), torch.ones_like(
+        ids.reshape(b, s * k)))
+    return int((counts - cap).clamp_min(0).sum())
+
+
+def _device_breakdown(prof, wall_ms: float, top: int = 14) -> dict:
+    """A profiled step's device time: busy ms (the kernels' self time),
+    the idle share of the wall, K5's and K5b's ms, and the ``top``
+    kernels by self time ([name, ms, calls])."""
+    rows = [(r.key, r.self_device_time_total / 1e3, r.count)
+            for r in prof.key_averages() if r.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    k5 = sum(ms for key, ms, _ in rows
+             if "flash_tc_kernel<" in key or "flash_kernel<" in key)
+    k5b = sum(ms for key, ms, _ in rows
+              if any(name in key for name in K5B_KERNELS))
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "K5_ms": k5, "K5b_ms": k5b,
+            "top": [[key[:96], ms, n] for key, ms, n in rows[:top]]}
+
+
+def _pieced_adamw_gate(dev) -> dict:
+    """One AdamW update on the card with the leaves cut into pieces of
+    2^16 values against the same update on whole leaves (bf16 parameters
+    and moments, one stacked leaf and two others): bit-equal."""
+    import torch
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = {"layers": {"w": (2, 96, 4096, 64), "ln": (2, 4096)},
+              "embed": (3000, 512)}
+
+    def tree(fn, node=shapes):
+        return {k: tree(fn, v) for k, v in node.items()} \
+            if isinstance(node, dict) else fn(node)
+    base = tree(lambda shape: torch.randn(shape, generator=gen, device=dev)
+                .to(torch.bfloat16))
+    grads = tree(lambda shape: torch.randn(shape, generator=gen, device=dev)
+                 .to(torch.bfloat16))
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10,
+                          moment_dtype="bfloat16")
+    def clone(t):
+        return {k: clone(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.clone()
+    runs, groups, real = [], [], adamw._PIECE
+    for piece in (real, 1 << 16):
+        params = clone(base)
+        state = adamw.init_state(params, opt)
+        adamw._PIECE = piece
+        try:
+            adamw.apply_updates(params, grads, state, opt)
+            groups.append(len(adamw._groups(params)))
+        finally:
+            adamw._PIECE = real
+        runs.append(list(_leaves(params)) + list(_leaves(state["m"]))
+                    + list(_leaves(state["v"])))
+    equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not equal or not groups[1] > groups[0]:
+        raise AssertionError(f"AdamW in pieces: bit-equal {equal}, groups "
+                             f"{groups}")
+    return {"bit_equal": True, "groups_whole_and_pieced": groups,
+            "piece_values": 1 << 16, "values": sum(
+                x.numel() for x in _leaves(base))}
+
+
+def train_moe_ep_phase(dev) -> dict:
+    """qwen3-moe at full width and ``TRAIN_MOE_EP`` depth training with its
+    experts on four shards of the card (``moe_impl="ep"`` under
+    ``mesh_context(make_host_mesh(4, [cuda:0] * 4))``): the exchange gate,
+    the step gate, timed EP steps with AdamW in pieces, the same steps
+    without a mesh (the GSPMD block), and the pieced-AdamW gate.  Returns
+    the K5 / K5b counts of the timed EP steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model, layers, moe_ep
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t = TRAIN_MOE_EP
+    cfg = get_config(t["arch"]).with_overrides(num_layers=t["layers"],
+                                               moe_impl="ep")
+    m_shards = t["model_axis"]
+    mesh = make_host_mesh(m_shards, [dev] * m_shards)
+    if cfg.dtype != "bfloat16" or cfg.opt_dtype != "bfloat16" \
+            or cfg.remat != "full" or mesh.shape != {"data": 1,
+                                                    "model": m_shards}:
+        raise AssertionError(f"{cfg.name}: {cfg.dtype}, moments "
+                             f"{cfg.opt_dtype}, remat {cfg.remat}, {mesh.shape}")
+    t_loc = t["batch"] * t["seq"] // m_shards
+    c2, c3 = moe_ep.capacities(t_loc, cfg, m_shards)
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=t["seq"],
+                                  global_batch=t["batch"], seed=SEED))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+
+    # gate 1, the exchange at full width: one layer's moe_block_ep against
+    # moe_block on the same bf16 input at a capacity factor (E / k) at
+    # which neither drops a slot, moe_block's top-k replayed into the shards
+    cf = cfg.moe_experts / cfg.moe_top_k
+    cfg1 = cfg.with_overrides(moe_capacity_factor=cf)
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    x = (torch.randn((t["batch"], t["seq"], cfg.d_model),
+                     generator=torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)).to(torch.bfloat16)
+    s_loc = t["seq"] // m_shards
+    with torch.no_grad():
+        with _routing(layers) as ref_ids:
+            ref = layers.moe_block(lp, x, cfg1)
+        replay = [ref_ids[0][:, j * s_loc:(j + 1) * s_loc].reshape(
+            -1, cfg.moe_top_k) for j in range(m_shards)]
+        with sh.mesh_context(mesh), _routing(layers, replay=replay):
+            got = moe_ep.moe_block_ep(lp, x, cfg1)
+    exchange = {"capacity_factor": cf, "c2_c3": list(moe_ep.capacities(
+                    t_loc, cfg1, m_shards)),
+                "dropped_ep": list(moe_ep.dropped_slots(replay, cfg1,
+                                                        m_shards)),
+                "dropped_gspmd": _gspmd_drops(ref_ids[0], cfg1),
+                "max_abs_err": float((got.float() - ref.float()).abs().max()),
+                "rel_err": rel_err(got, ref), "bound": EP_EXCHANGE_BOUND}
+    del x, ref, got, ref_ids, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not exchange["rel_err"] <= EP_EXCHANGE_BOUND \
+            or exchange["dropped_ep"] != [0, 0] or exchange["dropped_gspmd"]:
+        raise AssertionError(f"train_moe_ep exchange gate: {exchange}")
+
+    # gate 2, the step: the kernels' EP step against the same EP step with
+    # FlashAttentionFn on the plain versions, the router's choices of the
+    # kernels' step replayed (no kernel may launch in the plain one)
+    fn = fa_ops.flash_attention
+    names = [n for n, _ in _paths(params)]
+    with sh.mesh_context(mesh):
+        with _routing(layers) as kernel_ids:
+            loss_k, grads_k = _value_and_grad(model, params, batch)
+        launched = _k5_counts(fn)
+        saved = layers.FlashAttentionFn
+        layers.FlashAttentionFn = _plain_flash_fn()
+        try:
+            with _routing(layers, replay=kernel_ids):
+                loss_p, grads_p = _value_and_grad(model, params, batch)
+        finally:
+            layers.FlashAttentionFn = saved
+    if _k5_counts(fn) != launched:
+        raise AssertionError("train_moe_ep gate: a kernel ran in the plain "
+                             "step")
+    leaf_errs = {n: rel_err(gk, gp) for n, gk, gp in zip(names, grads_k,
+                                                         grads_p)}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(leaf_errs, key=leaf_errs.get)
+    gate = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+            "worst_leaf": worst, "worst_leaf_rel_err": leaf_errs[worst],
+            "bound": TRAIN_GRAD_BOUND, "leaf_rel_err": leaf_errs,
+            "routing": "the kernels' step's top-k replayed",
+            "top_k_calls": len(kernel_ids)}
+    del grads_k, grads_p, kernel_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not loss_rel <= TRAIN_LOSS_RTOL \
+            or not leaf_errs[worst] <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"train_moe_ep step gate: {gate}")
+
+    # the timed steps: EP under the mesh, then the GSPMD block without one
+    opt_cfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, total_steps=1000,
+                              moment_dtype=cfg.opt_dtype)
+    opt = adamw.init_state(params, opt_cfg)
+    step = make_train_step(model, TrainConfig(opt=opt_cfg))
+    k5 = 2 * cfg.num_layers               # forward and remat recompute
+    per_step = {"K5": k5, "K5_tc": k5, "K5b": cfg.num_layers,
+                "K5b_tc": cfg.num_layers}
+    runs = {}
+    for name, ctx in (("ep", lambda: sh.mesh_context(mesh)),
+                      ("gspmd", contextlib.nullcontext)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_k5(fn)
+        mets, times, first, ids = [], [], None, None
+        for i in range(1 + t["steps"]):
+            with ctx(), (_routing(layers) if i == 0
+                         else contextlib.nullcontext()) as calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            mets.append(met)
+            if i == 0:
+                first, ids = _k5_counts(fn), calls
+        counts = _k5_counts(fn)
+        if first != per_step or counts != {k: n * (1 + t["steps"])
+                                           for k, n in per_step.items()}:
+            raise AssertionError(f"train_moe_ep {name}: launch counts {first} "
+                                 f"in the first step, {counts} in all, want "
+                                 f"{per_step} a step")
+        # the forward's top-k calls, layer by layer (the remat recompute's
+        # follow): m_shards a layer under the mesh, one without
+        if name == "ep":
+            per_layer = [ids[l * m_shards:(l + 1) * m_shards]
+                         for l in range(cfg.num_layers)]
+            drops = [list(moe_ep.dropped_slots(calls, cfg, m_shards))
+                     for calls in per_layer]
+        else:
+            per_layer = [[ids[l]] for l in range(cfg.num_layers)]
+            drops = [_gspmd_drops(ids[l], cfg) for l in range(cfg.num_layers)]
+        # the share of a layer's slots its 8 busiest experts take (1/16 if
+        # the router spread them evenly)
+        busiest = [float(torch.bincount(torch.cat([c.reshape(-1) for c in
+                                                   calls]),
+                                        minlength=cfg.moe_experts)
+                         .sort(descending=True).values[:8].sum())
+                   / sum(c.numel() for c in calls) for calls in per_layer]
+        step_s = float(np.median(times[1:]))
+        with ctx(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        runs[name] = {"losses": [float(m["loss"]) for m in mets],
+                      "grad_norms": [float(m["grad_norm"]) for m in mets],
+                      "step_ms": [x * 1e3 for x in times],
+                      "ms_per_step_median": step_s * 1e3,
+                      "tokens_per_s": t["batch"] * t["seq"] / step_s,
+                      "max_memory_allocated_gib":
+                          torch.cuda.max_memory_allocated() / 2**30,
+                      "dropped_slots_per_layer": drops,
+                      "busiest_8_experts_share_per_layer": busiest,
+                      "top_k_calls_per_step": len(ids),
+                      "launches_per_step": first, "launches": counts,
+                      "profiled_step": _device_breakdown(prof, wall_ms)}
+        if name == "ep":
+            ep_counts = counts
+        del mets, met, ids
+    losses = runs["ep"]["losses"] + runs["gspmd"]["losses"]
+    del params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    pieces = _pieced_adamw_gate(dev)
+    row = {"phase": "train_moe_ep", "model": cfg.name, "params": n_params,
+           "layers": cfg.num_layers, "batch": t["batch"], "seq": t["seq"],
+           "remat": cfg.remat, "dtype": cfg.dtype,
+           "moment_dtype": opt_cfg.moment_dtype, "mesh": mesh.shape,
+           "t_loc": t_loc, "c2": c2, "c3": c3,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "adamw_piece_values": adamw._PIECE, **runs,
+           "ep_over_gspmd_ms": runs["ep"]["ms_per_step_median"]
+           / runs["gspmd"]["ms_per_step_median"],
+           "gate_exchange": exchange, "gate_step": gate,
+           "gate_adamw_pieces": pieces, "nvidia_smi": _smi()}
+    emit(row)
+    if not np.isfinite(losses).all() \
+            or not runs["ep"]["losses"][-1] < runs["ep"]["losses"][0]:
+        raise AssertionError(f"train_moe_ep: losses {losses}")
+    return ep_counts
+
+
+def collectives_phase(dev) -> None:
+    """The EDRA collectives over ``COLLECTIVE_PEERS`` entries of the card:
+    all-gather and broadcast (sources 0, 3, 7) equal to the plain results,
+    the all-reduce within f32 rounding of the plain sum, and repro's
+    gradient-sync scenario (eight batch shards' gradients, synced by
+    ``edra_allreduce`` / 8, equal to the whole-batch gradient); then one
+    all-reduce of ``COLLECTIVE_VALUES`` f32 values a peer, timed beside the
+    plain sum."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import collectives as coll
+
+    n = COLLECTIVE_PEERS
+    entries = make_host_mesh(n, [dev] * n).entries()
+    x = torch.arange(n * 4, dtype=torch.float32, device=dev).reshape(n, 4)
+    xs = [x[i:i + 1].clone() for i in range(n)]
+    gather_ok = all(torch.equal(g[:, 0], x) and g.device == e
+                    for g, e in zip(coll.edra_allgather(xs), entries))
+    bcast_ok = all(torch.equal(b, xs[src]) for src in (0, 3, 7)
+                   for b in coll.edra_broadcast(xs, source=src))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ys = [torch.randn((5, 3), generator=gen, device=dev) for _ in range(n)]
+    want = torch.stack(ys).sum(0)
+    reduce_err = max(float((r - want).abs().max())
+                     for r in coll.edra_allreduce(ys))
+    rng = [np.random.default_rng(i) for i in range(3)]
+    w = torch.from_numpy(rng[0].standard_normal((16, 8)).astype(np.float32))
+    xb = torch.from_numpy(rng[1].standard_normal((32, 16)).astype(np.float32))
+    yb = torch.from_numpy(rng[2].standard_normal((32, 8)).astype(np.float32))
+    w, xb, yb = w.to(dev), xb.to(dev), yb.to(dev)
+    grads = []
+    for i in range(n):
+        wi = w.clone().requires_grad_()
+        rows = slice(i * 32 // n, (i + 1) * 32 // n)
+        grads.append(torch.autograd.grad(
+            torch.mean((xb[rows] @ wi - yb[rows]) ** 2), [wi])[0])
+    wf = w.clone().requires_grad_()
+    full = torch.autograd.grad(torch.mean((xb @ wf - yb) ** 2), [wf])[0]
+    sync_err = max(float((g / n - full).abs().max())
+                   for g in coll.edra_allreduce(grads))
+    big = [torch.randn(COLLECTIVE_VALUES, generator=gen, device=dev)
+           for _ in range(n)]
+    row = {"phase": "collectives", "peers": n, "rounds": int(math.log2(n)),
+           "allgather_equal": gather_ok, "broadcast_equal": bcast_ok,
+           "allreduce_max_abs_err": reduce_err, "grad_sync_max_abs_err":
+           sync_err, "tolerance": 1e-5,
+           "allreduce_values_per_peer": COLLECTIVE_VALUES,
+           "allreduce_ms": cuda_ms(lambda i: coll.edra_allreduce(big),
+                                   iters=5, warmup=1),
+           "plain_sum_ms": cuda_ms(lambda i: torch.stack(big).sum(0),
+                                   iters=5, warmup=1),
+           "nvidia_smi": _smi()}
+    emit(row)
+    del big
+    torch.cuda.empty_cache()
+    if not (gather_ok and bcast_ok and reduce_err <= 1e-5
+            and sync_err <= 1e-5):
+        raise AssertionError(f"collectives: {row}")
 
 
 def train_lm_phase(dev) -> dict:

@@ -1,15 +1,21 @@
-"""Replica groups over a pool of torch devices (the port of
-``repro.launch.mesh.replica_groups``).
+"""Meshes and replica groups over a pool of torch devices (the port of
+``repro.launch.mesh``'s ``make_host_mesh`` and ``replica_groups``).
 
 A pool is a list of ``torch.device`` entries, which may repeat: two
 entries naming ``cuda:0`` are two shards on one card, as XLA's forced
 host devices are for ``repro`` on the CPU.  A device id is the entry's
 index in the pool (``repro``'s ids are the jax device ids of its pool,
 0..n-1 for the forced host devices, so the two line up).
+
+``make_host_mesh`` lays a pool out as a ``(data, model)`` grid: the mesh
+that ``sharding.specs.mesh_context`` installs and the expert-parallel
+MoE (``models.moe_ep``) and the EDRA collectives read.  There is no
+GSPMD in one process, so a mesh is only the grid of entries: code that
+runs "on" it moves each shard's tensors to the shard's entry itself.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,17 +29,57 @@ class DeviceGroup(NamedTuple):
     ids: Tuple[int, ...]
 
 
+class DeviceMesh(NamedTuple):
+    """A grid of pool entries: ``devices[i][j]`` is the entry at index i of
+    the first axis and j of the second, ``axis_names`` names the axes."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names,
+                        (len(self.devices), len(self.devices[0]))))
+
+    def entries(self) -> List[torch.device]:
+        """Every entry in row-major order (jax's ``mesh.devices.flat``)."""
+        return [d for row in self.devices for d in row]
+
+
+def _pool(pool: Optional[Sequence]) -> List[torch.device]:
+    """The entries of ``pool``; ``None`` means one per visible CUDA card
+    (raises without one)."""
+    if pool is None:
+        resolve_device(None)
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(d) for d in pool]
+
+
+def make_host_mesh(model_axis: int = 1,
+                   pool: Optional[Sequence] = None) -> DeviceMesh:
+    """A ``(data, model)`` mesh of ``(n // model_axis, model_axis)`` over
+    the ``n`` entries of ``pool``, row-major (``repro``'s
+    ``make_host_mesh`` over its devices).  ``model_axis`` must divide
+    ``n``; entries may repeat, so ``["cuda:0"] * 4`` is four shards on
+    one card."""
+    devices = _pool(pool)
+    n = len(devices)
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(
+            f"model_axis={model_axis} must be >= 1 and divide the "
+            f"{n} available device(s) exactly; pick a divisor of {n} "
+            f"(or pass a pool of a multiple of {model_axis} entries)")
+    return DeviceMesh(tuple(tuple(devices[i:i + model_axis])
+                            for i in range(0, n, model_axis)))
+
+
 def replica_groups(pool: Optional[Sequence], tp: int) -> List[DeviceGroup]:
     """Carve a device pool into per-replica tensor-parallel groups of
     ``tp`` consecutive entries: the unit a ring node maps to in the serve
     plane (node = replica group, not device).  ``pool=None`` means one
     entry per visible CUDA card (raises without one)."""
-    if pool is None:
-        resolve_device(None)
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    else:
-        devices = [torch.device(d) for d in pool]
+    devices = _pool(pool)
     n = len(devices)
     if tp < 1 or n % tp:
         raise ValueError(

@@ -32,16 +32,13 @@ Params = Dict[str, Any]
 
 
 def _module(cfg: ModelConfig):
-    """The family's module, as ``repro.models.model._module``; what is not
-    ported yet raises, naming its ROADMAP item."""
+    """The family's module, as ``repro.models.model._module`` (the MoE
+    family's ``moe_impl="ep"`` switches its blocks to ``moe_ep`` under a
+    mesh, in ``transformer``)."""
     if cfg.family == "encdec":
         return encdec
     if cfg.family in ("ssm", "hybrid"):
         return hybrid
-    if cfg.moe_experts and cfg.moe_impl == "ep":
-        raise NotImplementedError("the expert-parallel MoE (moe_impl='ep') "
-                                  "is not ported yet: ROADMAP queue 1, "
-                                  "item 4")
     return transformer
 
 

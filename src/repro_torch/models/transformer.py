@@ -14,6 +14,10 @@ slabs of (2, chunk, layers, kv_heads, head_dim), k and v stacked; a
 bfloat16 slab leaves the card as its raw words (``dht.data.Bf16Words``)
 and comes back bit for bit.
 
+With ``moe_impl="ep"`` a MoE layer runs ``moe_ep.moe_block_ep`` under an
+installed mesh (``sharding.specs.mesh_context``), and ``layers.moe_block``
+where that returns None, as ``repro``'s layer does.
+
 Training (``train_loss``) walks the layers as the forward does, each layer
 under ``torch.utils.checkpoint`` where ``cfg.remat`` asks for it.  Each
 stacked leaf is split into its layers by one ``unbind``, whose backward
@@ -23,6 +27,7 @@ stack in every layer's backward).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -34,7 +39,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..dht.data import Bf16Words
+from ..sharding import specs as sh
 from . import layers as L
+from . import moe_ep
 
 Params = Dict[str, Any]
 
@@ -301,7 +308,9 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     x = x + a
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe_experts:
-        return x + L.moe_block(lp["moe"], h, cfg)
+        m = moe_ep.moe_block_ep(lp["moe"], h, cfg) \
+            if cfg.moe_impl == "ep" else None
+        return x + (L.moe_block(lp["moe"], h, cfg) if m is None else m)
     return x + L.mlp(lp["mlp"], h, cfg)
 
 
@@ -320,7 +329,10 @@ def _remat(cfg: ModelConfig, fn):
     """``fn`` under ``cfg.remat``: ``"none"`` as it is, ``"full"``
     recomputed in the backward from its inputs, ``"dots"`` recomputed
     but for the matrix products' outputs.  Outside autograd it runs as
-    it is."""
+    it is.  The recomputation runs under the forward's mesh and rules
+    (``specs.snapshot``): on the card the backward runs in the autograd
+    engine's own thread, which does not see the caller's thread-local
+    mesh."""
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"remat={cfg.remat!r}: takes none, dots or full")
     if cfg.remat == "none":
@@ -329,13 +341,22 @@ def _remat(cfg: ModelConfig, fn):
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        extra = {}
-        if cfg.remat == "dots":
-            extra["context_fn"] = functools.partial(
-                create_selective_checkpoint_contexts, _save_dots)
+        state = sh.snapshot()
+
+        def contexts():
+            fwd, rec = create_selective_checkpoint_contexts(_save_dots) \
+                if cfg.remat == "dots" else (contextlib.nullcontext(),
+                                             contextlib.nullcontext())
+            return fwd, _both(rec, sh.installed(state))
         return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False, **extra)
+                          preserve_rng_state=False, context_fn=contexts)
     return wrapped
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
 
 
 def _layer_slices(params: Params, n: int):

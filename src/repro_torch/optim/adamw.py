@@ -7,9 +7,13 @@ copies, the largest allocation of a step): the update of each element is
 ``repro``'s f32 arithmetic, cast back to the parameter's dtype, with no
 weight decay on leaves of fewer than two dimensions.  The leaves stacked
 on a layer axis are updated a layer at a time (``torch._foreach_*`` over
-every leaf's slice of that layer), so the f32 temporaries stay a layer's
-size.  The step count, learning rate and clip scale live on the device:
-a step reads nothing back to the host.
+every leaf's slice of that layer), and a tensor of more than ``_PIECE``
+values (a layer's stacked experts, the embedding) in pieces of its
+leading axis, one after another, so the f32 temporaries stay a piece's
+size: 0.27 GB each, where one layer's w1 of qwen3-moe's experts would
+make 3.2 GB.  Every element sees the same operations in the same order, so
+the pieces change no bit of the result.  The step count, learning rate
+and clip scale live on the device: a step reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ import torch
 Params = Any
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+# the most values of one tensor that an update group holds (2^26: each
+# f32 temporary of a piece is 256 MiB)
+_PIECE = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -87,7 +94,8 @@ def _groups(*trees) -> List[Tuple[List[bool], ...]]:
     outside ``layers`` alone, then for each layer its slice of every
     stacked leaf.  A group is (weight-decay flags, then a list of matching
     tensors a tree); a leaf decays where it has two dimensions or more
-    (a stacked leaf always has), as ``repro`` decides on whole leaves."""
+    (a stacked leaf always has), as ``repro`` decides on whole leaves.
+    Tensors of more than ``_PIECE`` values are cut (``_cut``)."""
     def split(tree):
         if isinstance(tree, dict) and "layers" in tree:
             rest = {k: v for k, v in tree.items() if k != "layers"}
@@ -101,7 +109,26 @@ def _groups(*trees) -> List[Tuple[List[bool], ...]]:
     for layer in range(stacked[0].shape[0] if stacked else 0):
         groups.append(([True] * len(stacked),)
                       + tuple([x[layer] for x in part[1]] for part in parts))
-    return groups
+    return [piece for group in groups for piece in _cut(group)]
+
+
+def _cut(group: Tuple[List, ...]) -> List[Tuple[List, ...]]:
+    """A group with every tensor of more than ``_PIECE`` values moved out
+    into groups of one piece each: views of at most ``_PIECE`` values
+    (or one row of the leading axis) cut along that axis."""
+    decay, *trees = group
+    big = [i for i, p in enumerate(trees[0]) if p.numel() > _PIECE]
+    if not big:
+        return [group]
+    small = [i for i in range(len(decay)) if i not in big]
+    out = [([decay[i] for i in small],) + tuple([t[i] for i in small]
+                                                 for t in trees)] \
+        if small else []
+    for i in big:
+        rows = max(1, _PIECE // (trees[0][i].numel() // trees[0][i].shape[0]))
+        for views in zip(*(t[i].split(rows) for t in trees)):
+            out.append(([decay[i]],) + tuple([v] for v in views))
+    return out
 
 
 @torch.no_grad()

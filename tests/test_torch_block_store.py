@@ -219,6 +219,26 @@ def _all_replicas_lost(ns):
     return [store.sync(), store.get(KEYS[6]), _snapshot(store)]
 
 
+def _whole_replica_set_leaves_then_one_rejoins(ns):
+    """repro's Hypothesis property fails on this sequence (a put, then
+    graceful leaves of the block's whole replica set between two syncs):
+    the store counts the block lost and ``get`` returns None until a
+    holder rejoins with its disk, which brings the bytes back.  Both
+    packages behave so."""
+    state, store = _fresh(ns)
+    store.put(KEYS[0], b"kept on disk")
+    holders = state.replica_set(KEYS[0], R)
+    for node in holders:
+        state.remove(node)                  # a graceful leave: disk kept
+    out = [store.sync(), store.get(KEYS[0]), _snapshot(store)]
+    state.add(holders[1])
+    out += [store.get(KEYS[0]), store.sync(), store.get(KEYS[0]),
+            _snapshot(store)]
+    assert out[0]["lost"] == 1 and out[1] is None
+    assert out[3] == out[5] == b"kept on disk"
+    return out
+
+
 def _sync_without_churn(ns):
     _, store = _fresh(ns)
     for k in KEYS:
@@ -239,7 +259,8 @@ def _string_names_and_arrays(ns):
 
 SCENARIOS = [_put_places_on_replica_set, _overwrite_bumps_version,
              _remove_buries, _put_after_remove, _corrupt_copy, _stale_rejoin,
-             _crash_and_sync, _all_replicas_lost, _sync_without_churn,
+             _crash_and_sync, _all_replicas_lost,
+             _whole_replica_set_leaves_then_one_rejoins, _sync_without_churn,
              _string_names_and_arrays]
 
 

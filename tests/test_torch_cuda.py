@@ -1070,6 +1070,38 @@ def test_family_replica_on_the_card_matches_the_cpu(cuda, arch, chunk):
     assert streams["cpu"] == streams[str(cuda)]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_expert_parallel_block_on_four_card_shards_matches_the_cpu(cuda,
+                                                                    arch):
+    """The EP block on a mesh of four ``cuda:0`` entries (data 2, model 4
+    of a pool of eight) against the same on eight CPU entries, smoke() in
+    f32 with TF32 off: its output within 1e-5 of max |y|, and the
+    gradients of sum(y * r) in the input and every MoE leaf within 1e-4
+    of their max |g|."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe_ep
+    from repro_torch.sharding import specs as sh
+    cfg = get_smoke_config(arch).with_overrides(dtype="float32",
+                                                moe_impl="ep")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    rng = np.random.default_rng(2)
+    x, r = (torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model))
+                             .astype(np.float32)) for _ in range(2))
+    res = {}
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in lp.items()}
+        xd = x.to(dev).requires_grad_()
+        with sh.mesh_context(make_host_mesh(4, [dev] * 8)):
+            y = moe_ep.moe_block_ep(leaves, xd, cfg)
+        grads = torch.autograd.grad(torch.sum(y * r.to(dev)),
+                                    [xd, *leaves.values()])
+        res[str(dev)] = [t.detach().cpu() for t in (y, *grads)]
+    for a, b, tol in zip(res[str(cuda)], res["cpu"], [1e-5] + [1e-4] * 99):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
 # ---------------------------------------------------------------------------
 # everywhere: no silent fallback to the CPU, no plain version off the CPU
 # ---------------------------------------------------------------------------

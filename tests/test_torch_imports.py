@@ -52,7 +52,8 @@ NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
                "repro_torch.launch.inputs", "repro_torch.optim.adamw",
                "repro_torch.runtime.failover", "repro_torch.train.step",
-               "repro_torch.train.trainer", "repro_torch.train_lm")
+               "repro_torch.train.trainer", "repro_torch.train_lm",
+               "repro_torch.models.moe_ep", "repro_torch.sharding.collectives")
 
 
 def _env(**extra):

@@ -181,11 +181,51 @@ def test_family_builds_its_module(override):
 
 
 def test_other_families_are_not_ported():
-    """The expert-parallel MoE still raises, naming its ROADMAP item."""
+    """The expert-parallel MoE (``moe_impl="ep"``, the last variant that
+    raised here) is ported: ``Model(cfg)`` builds, and without a mesh its
+    blocks fall back to the GSPMD ``moe_block``, as repro's do, so its
+    prefill and ``train_loss`` (and the loss's gradients) equal the
+    GSPMD model's bit for bit."""
     cfg = get_smoke_config("qwen2.5-3b").with_overrides(
-        family="moe", moe_experts=4, moe_top_k=2, moe_d_ff=32, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        Model(cfg)
+        family="moe", moe_experts=4, moe_top_k=2, moe_d_ff=32, moe_impl="ep",
+        dtype="float32")
+    m, gspmd = Model(cfg), Model(cfg.with_overrides(moe_impl="gspmd"))
+    assert m.supports_per_slot_decode
+    p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.from_numpy(np.stack([_prompt(cfg, 12, 1),
+                                        _prompt(cfg, 12, 2)]))
+    out = [model.prefill(p, {"tokens": prompt},
+                         model.init_cache(2, MAX_LEN, device="cpu"))
+           for model in (m, gspmd)]
+    assert torch.equal(out[0][0], out[1][0])
+    for name in ("k", "v"):
+        assert torch.equal(out[0][1][name], out[1][1][name])
+    batch = {"tokens": prompt, "labels": prompt.roll(1, dims=1)}
+    losses, grads = [], []
+    for model in (m, gspmd):
+        xs = {k: t.detach().clone().requires_grad_()
+              for k, t in _leaf_paths(p)}
+        loss = model.train_loss(_rebuild(p, xs), batch)
+        losses.append(loss.detach())
+        grads.append(torch.autograd.grad(loss, list(xs.values())))
+    assert torch.equal(*losses)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _leaf_paths(tree, pre=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, f"{pre}/{k}")
+    else:
+        yield pre, tree
+
+
+def _rebuild(tree, leaves, pre=""):
+    """``tree`` with the leaf at each path taken from ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves, f"{pre}/{k}") for k, v in tree.items()}
+    return leaves[pre]
 
 
 @pytest.mark.parametrize("arch", DENSE)

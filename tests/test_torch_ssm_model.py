@@ -245,12 +245,22 @@ def test_load_rejects_a_foreign_tree(pair):
     dict(family="moe", num_heads=4, num_kv_heads=4, moe_experts=4,
          moe_top_k=2, moe_d_ff=32, moe_impl="ep")])
 def test_unported_variants_raise(override):
-    """Only the expert-parallel MoE still raises, naming its ROADMAP item;
-    the encoder-decoder, the VLM and MLA are ported and build."""
+    """Every variant is ported and builds: the encoder-decoder, the VLM,
+    MLA, and the expert-parallel MoE, whose blocks without a mesh fall
+    back to the GSPMD ``moe_block`` as repro's do (its prefill and
+    ``train_loss`` equal the GSPMD model's bit for bit)."""
     cfg = get_smoke_config("falcon-mamba-7b").with_overrides(**override)
-    if cfg.moe_impl == "ep":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg)
-    else:
-        assert Model(cfg).supports_per_slot_decode \
-            == (cfg.family != "encdec")
+    assert Model(cfg).supports_per_slot_decode == (cfg.family != "encdec")
+    if cfg.moe_impl != "ep":
+        return
+    cfg = cfg.with_overrides(dtype="float32")
+    m, gspmd = Model(cfg), Model(cfg.with_overrides(moe_impl="gspmd"))
+    p = m.init(torch.Generator().manual_seed(1), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 16), dtype=np.int32))
+    logits = [model.prefill(p, {"tokens": tokens},
+                            model.init_cache(2, 32, device="cpu"))[0]
+              for model in (m, gspmd)]
+    assert torch.equal(*logits)
+    batch = {"tokens": tokens, "labels": tokens.roll(1, dims=1)}
+    assert torch.equal(m.train_loss(p, batch), gspmd.train_loss(p, batch))

@@ -189,6 +189,45 @@ def test_schedule_matches_repro(step):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("dtype,moments", [("float32", "float32"),
+                                            ("bfloat16", "bfloat16")])
+def test_adamw_in_pieces_is_bit_equal_to_the_whole_leaf_update(
+        monkeypatch, dtype, moments):
+    """Two steps with ``adamw._PIECE`` patched down to 7 values (every
+    tensor of more than 7 cut along its leading axis, a row of more than 7
+    values a piece) against the same steps on whole leaves: every
+    parameter and moment equal bit for bit, each keeping its storage."""
+    cfg = get_smoke_config("qwen3-moe-235b-a22b").with_overrides(dtype=dtype)
+    m = Model(cfg)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=50,
+                          moment_dtype=moments)
+    runs, n_groups = [], []
+    for piece in (adamw._PIECE, 7):
+        monkeypatch.setattr(adamw, "_PIECE", piece)
+        params = m.init(torch.Generator().manual_seed(0), device="cpu")
+        state = adamw.init_state(params, opt)
+
+        def tensors():
+            return adamw.leaves(params) + adamw.leaves(state["m"]) \
+                + adamw.leaves(state["v"])
+        ptrs = [t.data_ptr() for t in tensors()]
+        gen = torch.Generator().manual_seed(4)
+        for _ in range(2):
+            adamw.apply_updates(params, _random_like(params, gen), state, opt)
+        assert [t.data_ptr() for t in tensors()] == ptrs
+        runs.append(tensors())
+        n_groups.append(len(adamw._groups(params)))
+    assert n_groups[1] > 10 * n_groups[0]
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _random_like(tree, gen):
+    if isinstance(tree, dict):
+        return {k: _random_like(v, gen) for k, v in tree.items()}
+    return torch.randn(tree.shape, generator=gen).to(tree.dtype)
+
+
 def test_optimizer_state_matches_repros_tree():
     jm, jp, m, p, cfg = _pair("qwen2.5-3b")
     state = adamw.init_state(p, adamw.OptConfig())
