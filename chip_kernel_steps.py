@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What holds K3 (decode attention), K2 (bucketed ring lookup), K6
-(selective scan), K4 (EDRA tree), K7 (single-word ring lookup) and K5b
-(the flash backward) back, and what each step of their redesign buys, on
+(selective scan), K4 (EDRA tree), K7 (single-word ring lookup), K5b
+(the flash backward) and K6b (the scan's backward) back, and what each step of their redesign buys, on
 one card; and K5's (flash attention) device time at the serve paths'
 heads.
 
@@ -89,7 +89,15 @@ layer's cache is cold:
             against the plain version, for the kernel and for each timing
             variant of its design (``K5B_STEPS``: patched copies of
             ``csrc/flash_attention_bwd.cu``), with the number of functions
-            in which ptxas serialized the wgmmas (its C7515 note).
+            in which ptxas serialized the wgmmas (its C7515 note);
+  k6b       K6b (``ssm_scan_bwd_cuda``, bf16 x/B/C/D/dy, f32 dt/A, no h0
+            or dh_last) at falcon-mamba-7b's training shape (B 8, L 1024,
+            Din 8192, N 16) and at B 1: the device ms of its scan kernel
+            and of its sums across blocks, and in all, the CUDA-event ms,
+            K6's forward at the same shape beside it, the bound and the
+            SFU's floor (``chip_smoke.k6b_bound``, ``sfu_ms``), and the
+            error against the plain version (B 1 only: the plain version
+            walks every position in turn).
 
 The phases read which design the checkout holds from its sources, so the
 script also measures a parent's kernels when copied into its tree.
@@ -1121,8 +1129,51 @@ def k5b(dev, gen):
         torch.cuda.empty_cache()
 
 
+def k6b(dev, gen):
+    """K6b at falcon-mamba-7b's training shape and at B 1: its kernels'
+    device time, K6's beside it, the bound and the SFU's floor."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    _, l, din, n = smoke.K6B_SHAPE
+    for bb in (smoke.K6B_SHAPE[0], 1):
+        x, dt, B, C, A, D, _ = smoke.k6_random_inputs(dev, gen,
+                                                      (bb, l, din, n))
+        x, B, C, D = (t.bfloat16() for t in (x, B, C, D))
+        dy = torch.randn((bb, l, din), generator=gen, device=dev).bfloat16()
+        args = (x, dt, B, C, A, D, None, dy, None)
+        fn = lambda i: sk.ssm_scan_bwd_cuda(*args)  # noqa: E731
+        split = {k: float(np.median(v)) for k, v in _by_kernel(fn).items()}
+        b6b, by6b = smoke.k6b_bound(*args)
+        row = {"shape": [bb, l, din, n], "ms": smoke.cuda_ms(fn, iters=10),
+               "device_ms": sum(split.values()), "device_ms_by_kernel": split,
+               "k6_forward_device_ms": device_ms(
+                   lambda i: sk.ssm_scan_cuda(*args[:7])),
+               "bound_ms": b6b, "bound_by": by6b,
+               "sfu_ms": smoke.sfu_ms(bb * l * din * n)}
+        if bb == 1:
+            got = sk.ssm_scan_bwd_cuda(*args)
+            want = ssm_scan_bwd_ref(*args)
+            row["max_rel_err"] = max(smoke.rel_err(g, w)
+                                     for g, w in zip(got, want)
+                                     if w is not None)
+        emit({"phase": "k6b", **row})
+        del x, dt, B, C, A, D, dy, args
+        torch.cuda.empty_cache()
+
+
+def _by_kernel(fn, windows=3):
+    """Each kernel's device ms per call of ``fn`` over ``windows``
+    profiled windows."""
+    out = {}
+    for _ in range(windows):
+        for k, v in profile_split(fn).items():
+            out.setdefault(k, []).append(v)
+    return out
+
+
 PHASES = ("k3_simt", "k2", "k3_tc", "k2_alternatives", "k6", "k4", "k7", "k5",
-          "k5b")
+          "k5b", "k6b")
 
 
 def main(argv=None) -> int:
@@ -1149,7 +1200,9 @@ def main(argv=None) -> int:
             continue
         if phase in ("k3_tc", "k2_alternatives") and not redesigned:
             continue
-        if phase in ("k3_simt", "k3_tc", "k6", "k5", "k5b"):
+        if phase == "k6b" and not (build.CSRC / "ssm_scan_bwd.cu").exists():
+            continue                      # a tree from before K6b
+        if phase in ("k3_simt", "k3_tc", "k6", "k5", "k5b", "k6b"):
             globals()[phase](dev, gen)
         else:
             globals()[phase](dev)

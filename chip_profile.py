@@ -49,7 +49,15 @@ x S 1024 of ``SyntheticLM``), after a warm-up step: the shares of K5 (its
 forward and remat recompute, ``flash_tc_kernel``), of K5b (its
 ``bwd_prep``, ``bwd_dkdv_wgmma`` and ``bwd_dq_wgmma`` kernels) and of the f32 logits'
 forward (``layers.logits_fn`` under the label ``logits_f32``; their
-backward runs outside it).  Prints
+backward runs outside it).  Then one training step each, after a
+warm-up step, of the families ``chip_smoke.py`` trains (bf16, remat
+full, AdamW, B 8): ``train_step_falcon``, falcon-mamba-7b at full width
+and 32 of its 64 layers (S 1024; the shares of K6, ``ssm_scan_kernel``,
+forward and remat recompute, and of K6b, ``ssm_scan_bwd_kernel`` and
+``ssm_bwd_sum_kernel``); ``train_step_zamba2``, zamba2-7b at full width
+and 36 of its 81 layers (S 1024; the SSD's label ``ssd``, K5 and K5b at
+hd 112); ``train_step_whisper``, whisper-small at full size (1500 stub
+frames, 448 tokens; K5 and K5b).  Prints
 one JSON line per window: host wall time, device busy time (the union
 of the kernels' intervals), the idle share, and the ops with the most
 device time.  Needs a CUDA card; imports no jax.
@@ -372,6 +380,51 @@ def main() -> int:
             "K5": ("flash_tc_kernel<",),
             "K5b": ("bwd_prep_kernel<", "bwd_dkdv_wgmma_kernel<",
                     "bwd_dq_wgmma_kernel<")})
+    del state, params, model, train_step
+    torch.cuda.empty_cache()
+
+    # the other families' training steps, as chip_smoke.py's train_ssm,
+    # train_hybrid and train_encdec: falcon-mamba-7b at full width and 32
+    # layers (K6, forward and remat recompute, and K6b, the scan and its
+    # sums across blocks), zamba2-7b at full width and 36 layers (the
+    # SSD's label, K5 and K5b at hd 112), whisper-small at full size (K5
+    # and K5b)
+    k5 = ("flash_tc_kernel<",)
+    k5b = ("bwd_prep_kernel<", "bwd_dkdv_wgmma_kernel<", "bwd_dq_wgmma_kernel<")
+    for window, arch, depth, seq, shares, labelled in (
+            ("train_step_falcon", "falcon-mamba-7b", 32, 1024,
+             {"K6": ("ssm_scan_kernel<",),
+              "K6b": ("ssm_scan_bwd_kernel<", "ssm_bwd_sum_kernel<")}, ()),
+            ("train_step_zamba2", "zamba2-7b", 36, 1024,
+             {"K5": k5, "K5b": k5b}, ((ssm, "ssd", "_ssd_chunks"),)),
+            ("train_step_whisper", "whisper-small", None, 448,
+             {"K5": k5, "K5b": k5b}, ())):
+        cfg = get_config(arch)
+        if depth:
+            cfg = cfg.with_overrides(num_layers=depth)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        state = {"params": params, "opt": adamw.init_state(params, opt_cfg)}
+        train_step = make_train_step(model, TrainConfig(opt=opt_cfg))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+            DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=8,
+                       seed=0)).batch(0).items()}
+        if cfg.family == "encdec":
+            batch["frames"] = (torch.randn(
+                (8, cfg.audio_frames, cfg.d_model), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(1))
+                * 0.02).to(torch.bfloat16)
+        train()                          # warm-up
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_labelled(layers, "logits_f32", "logits_fn"))
+            for module, label, name in labelled:
+                stack.enter_context(_labelled(module, label, name))
+            _window(window, train, 1,
+                    labels=("logits_f32",) + tuple(x[1] for x in labelled),
+                    shares=shares)
+        del state, params, model, train_step, batch
+        torch.cuda.empty_cache()
     return 0
 
 

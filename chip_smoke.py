@@ -22,13 +22,21 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            csrc/flash_attention_bwd.cu: qwen2.5-3b's training shape, B 8,
            S 1024, 16/2 heads of hd 128, causal, in bf16, fp16 and f32,
            lm-100m's, B 8, S 256, 12/4 of hd 64, deepseek-v2's, B 1,
-           S 2048, 128/128 of q . k 192 and v 128, and qwen3-moe's, B 4,
-           S 1024, 64/4 of hd 128, in bf16; max |d| / max
-           |ref| per gradient within 2e-2, 5e-3 and 1e-4; each case's route
-           checked against ``kernel.bwd_route``; timed in turns with SDPA's
-           backward pinned to its fastest backend; the bound is its five
-           products over the causal pairs) and K6 (ssm_scan at a
-           falcon-mamba-7b admit's shape on random f32 inputs) at the main
+           S 2048, 128/128 of q . k 192 and v 128, qwen3-moe's, B 4,
+           S 1024, 64/4 of hd 128, zamba2-7b's, B 8, S 1024, 32/32 of hd
+           112 in bf16 and fp16, and whisper-small's, B 8, 12/12 of hd 64,
+           1500 x 1500 and 448 x 1500 unmasked and 448 causal, in bf16;
+           max |d| / max |ref| per gradient within 2e-2, 5e-3 and 1e-4, two
+           calls bit-equal; each case's route checked against
+           ``kernel.bwd_route``; timed in turns with SDPA's backward pinned
+           to its fastest backend; the bound is its five products over the
+           pairs the mask lets through), K6 (ssm_scan at a
+           falcon-mamba-7b admit's shape on random f32 inputs) and K6b
+           (ssm_scan_bwd, csrc/ssm_scan_bwd.cu, at falcon-mamba-7b's
+           training shape, B 8, L 1024, Din 8192, N 16, x/B/C/D/dy in bf16,
+           without and with h0 and dh_last: each gradient within 1e-2 of
+           its max |ref|, two calls bit-equal; its bound from the bytes and
+           the SFU's exponentials) at the main
            path's shapes, each held against its plain PyTorch version on
            the same inputs (K1/K2 exactly, also K2 at the fused round's 32
            keys; K3 within 1.6e-2 in bf16 and fp16 on the tensor-core route
@@ -241,6 +249,21 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            slots each layer drops (EP: past c2 and past c3; GSPMD: past
            its cap), and one more profiled step of each (busy and idle
            share, K5's and K5b's ms, the top kernels);
+  train_ssm, train_hybrid, train_encdec  the SSM, hybrid and
+           encoder-decoder families training (``TRAIN_FAMILIES``, bf16,
+           remat full, AdamW, one repeated batch, a warm-up and 3 timed
+           steps): falcon-mamba-7b at full width, depth cut 64 -> 32, B 8
+           x S 1024 (K6 64 and K6b 32 launches a step); zamba2-7b at full
+           width, depth cut 81 -> 36, B 8 x S 1024 (K5 12 and K5b 6 a
+           step, tensor cores at hd 112); whisper-small at full size, B 8
+           x 1500 stub frames x 448 tokens (K5 72 and K5b 36 a step: the
+           encoder's, the decoder's self and cross attention).  Gates: the
+           losses finite and falling, the launches a step, and at full
+           width and 2 layers one step's loss within 1e-2 relative and each
+           leaf within 5e-2 of max |g| of the same step with
+           ``FlashAttentionFn`` and ``SsmScanFn`` on the plain versions.
+           Printed: ms a step, tokens/s, peak memory, the kernels' device
+           ms a step;
   collectives the EDRA collectives over 8 entries of cuda:0: all-gather
            and broadcast (sources 0, 3, 7) equal to the plain results, the
            all-reduce within 1e-5 of the plain sum, eight batch shards'
@@ -360,23 +383,35 @@ K5_FAMILY_CASES = [((1, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
 # repro's (tests/test_kernels.py) for bf16 and f32; fp16, whose mantissa
 # is 3 bits finer, 2.5e-3 (H100 80GB HBM3, 700 W: 9.8e-4 at every fp16 case)
 K5_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 2e-5}
-# K5b (the flash backward): (B, S, dtype) causal at qwen2.5-3b's training
-# shape in three types, at lm-100m's heads (the train_lm twin), at
-# deepseek-v2's MLA (train_mla: one batch of 2048 tokens) and at
-# qwen3-moe's heads (train_moe_ep: B 4 x S 1024); the
-# tolerance is max |d| / max |ref| per gradient (P and dS enter the
-# tensor cores' products rounded to the input type, FA2's recipe)
+# K5b (the flash backward): (B, Sq, Sk, causal, dtype) at qwen2.5-3b's
+# training shape in three types, at lm-100m's heads (the train_lm twin),
+# at deepseek-v2's MLA (train_mla: one batch of 2048 tokens), at
+# qwen3-moe's heads (train_moe_ep: B 4 x S 1024), at zamba2-7b's shared
+# block (train_hybrid: hd 112 on the hd-128 tiles, bf16 and fp16) and at
+# whisper-small's training shapes (train_encdec: the encoder, 1500 x 1500
+# unmasked, whose last key tile has 28 rows; the decoder's causal self
+# attention over 448 tokens; its cross attention, 448 over 1500
+# unmasked); the tolerance is max |d| / max |ref| per gradient (P and dS
+# enter the tensor cores' products rounded to the input type, FA2's
+# recipe)
 LM100M_HEADS = (12, 4, 64)
-K5B_CASES = [((8, 1024, "bfloat16"), QWEN_HEADS),
-             ((8, 1024, "float16"), QWEN_HEADS),
-             ((8, 1024, "float32"), QWEN_HEADS),
-             ((8, 256, "bfloat16"), LM100M_HEADS),
-             ((1, 2048, "bfloat16"), DEEPSEEK_HEADS),
-             ((4, 1024, "bfloat16"), QWEN3_MOE_HEADS)]
+K5B_CASES = [((8, 1024, 1024, True, "bfloat16"), QWEN_HEADS),
+             ((8, 1024, 1024, True, "float16"), QWEN_HEADS),
+             ((8, 1024, 1024, True, "float32"), QWEN_HEADS),
+             ((8, 256, 256, True, "bfloat16"), LM100M_HEADS),
+             ((1, 2048, 2048, True, "bfloat16"), DEEPSEEK_HEADS),
+             ((4, 1024, 1024, True, "bfloat16"), QWEN3_MOE_HEADS),
+             ((8, 1024, 1024, True, "bfloat16"), ZAMBA2_HEADS),
+             ((8, 1024, 1024, True, "float16"), ZAMBA2_HEADS),
+             ((8, 1500, 1500, False, "bfloat16"), WHISPER_HEADS),
+             ((8, 448, 448, True, "bfloat16"), WHISPER_HEADS),
+             ((8, 448, 1500, False, "bfloat16"), WHISPER_HEADS)]
 K5B_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 K5_LSE_ATOL = 1e-4                 # K5's logsumexp (f32) against the plain one
 K5B_KERNELS = ("bwd_prep_kernel<", "bwd_dkdv_wgmma_kernel<", "bwd_dq_wgmma_kernel<",
                "bwd_delta_kernel<", "bwd_dkdv_simt_kernel<", "bwd_dq_simt_kernel<")
+K6_KERNELS = ("ssm_scan_kernel<",)
+K6B_KERNELS = ("ssm_scan_bwd_kernel<", "ssm_bwd_sum_kernel<")
 # the tensor-core functions whose SASS must hold HGMMA: K5's forward and
 # K5b's two products, each in bf16 and fp16 at three head-dim pairs
 TC_FUNCTIONS = {"flash_tc_kernel": 6, "bwd_dkdv_wgmma_kernel": 6,
@@ -389,6 +424,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 TRAIN_GATE_LAYERS = 2
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_BOUND = 5e-2            # max |d| / max |plain| per leaf (bf16)
+# train_ssm, train_hybrid, train_encdec: the SSM, hybrid and
+# encoder-decoder families training on the card, each (arch, depth or None
+# for the full model, batch, sequence, timed steps after one warm-up):
+# falcon-mamba-7b at full width with depth cut 64 -> 32 (3.9 B parameters:
+# 47 GB of bf16 weights and gradients and f32 moments); zamba2-7b at full
+# width with depth cut 81 -> 36 (six shared-block sites; 3.2 B
+# parameters, 38 GB); whisper-small at full size (0.24 B; B 8 x 1500
+# stub frames, 448 decoder tokens)
+TRAIN_FAMILIES = [("train_ssm", ("falcon-mamba-7b", 32, 8, 1024, 3)),
+                  ("train_hybrid", ("zamba2-7b", 36, 8, 1024, 3)),
+                  ("train_encdec", ("whisper-small", None, 8, 448, 3))]
 # train_lm: the twin's lm-100m at B 8 x S 256 for 60 steps, a checkpoint
 # every 20, a peer failed during step 30 (the run restores step 20)
 TRAIN_LM = dict(batch=8, seq=256, steps=60, save_every=20, fail_at=30)
@@ -421,6 +467,20 @@ K6_Y_REL = 1e-2                    # bf16 y: of max |y|
 # (dt*x)*B, +, h*C, the reduction's add; and per (position, channel):
 # dt*x, D*x, +
 K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
+# K6b (the scan's backward) at falcon-mamba-7b's training shape (train_ssm:
+# B 8 x S 1024), x, B, C, D and dy in bf16, dt and A in f32, without and
+# with h0 and dh_last; each gradient within its K6B_REL of its max |ref|:
+# 1e-2 for dx, dB, dC and dD, rounded once to bf16; K6's f32 1e-4 for the
+# f32 ddt, dA and dh0 (the f32 sums in another order and the SFU's
+# exponentials)
+K6B_SHAPE = (8, 1024, 8192, 16)
+K6B_REL = {"dx": 1e-2, "dB": 1e-2, "dC": 1e-2, "dD": 1e-2,
+           "ddt": 1e-4, "dA": 1e-4, "dh0": 1e-4}
+# f32 operations K6b must do per (position, channel, state): a_t, g_t
+# (C dy + q), q = a g, g dt, dx's and dB's products, ddt's (x B + A a h),
+# dA's, dC's dy h and the state h = a h + dt x B; and per (position,
+# channel): dt x, D dy, dy x
+K6B_OPS_STATE, K6B_OPS_CHANNEL = 16, 3
 SFU_PER_CLOCK = 16                 # exponentials a clock on each SM (Hopper)
 SSM_PROMPTS = (128, 256, 512, 1024)   # whole multiples of ssm_chunk 256
 K7_KEYS = 1 << 20
@@ -577,9 +637,10 @@ def sdpa_in_turns(kernel, sdpa_call) -> dict:
                 "ms", "library_ms", "kernel_over_library", "ratio_min_max")}}
 
 
-def sdpa_backward_in_turns(kernel, q, k, v, do) -> dict:
+def sdpa_backward_in_turns(kernel, q, k, v, do, causal: bool = True) -> dict:
     """``in_turns`` of a flash backward against SDPA's backward on the same
-    (B, S, heads, hd) inputs (causal, ``enable_gqa``), pinned to its
+    (B, S, heads, hd) inputs (``causal`` or unmasked, ``enable_gqa``),
+    pinned to its
     fastest backend: each backend's forward runs once outside any timing,
     a library call is one ``autograd.grad`` through that graph, and the
     backends are read in turns (5 rounds, the CUDA-event mean of 10 calls)
@@ -594,7 +655,7 @@ def sdpa_backward_in_turns(kernel, q, k, v, do) -> dict:
         leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
         try:
             with sdpa_kernel(backend):
-                out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+                out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
             torch.autograd.grad(out, leaves, dot, retain_graph=True)
         except RuntimeError:
             continue
@@ -1037,42 +1098,48 @@ def main() -> int:
                      f"{heads_text(heads)}, bf16, {mask} ({site})",
             **{k: row[k] for k in summary}}
     k5b_rows = []
-    for (b, sl, dtype_name), heads in K5B_CASES:
+    for (b, sq, sk, causal, dtype_name), heads in K5B_CASES:
         h5, hkv5, hd5, dv5 = v_heads(heads)
         dtype = getattr(torch, dtype_name)
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                       for shape in ((b, sl, h5, hd5), (b, sl, hkv5, hd5),
-                                     (b, sl, hkv5, dv5), (b, sl, h5, dv5)))
+                       for shape in ((b, sq, h5, hd5), (b, sk, hkv5, hd5),
+                                     (b, sk, hkv5, dv5), (b, sq, h5, dv5)))
+        case = (b, sq, sk, causal, dtype_name)
         # K5 with lse (the training forward) against its plain version, and
         # its output equal to the serve path's
-        o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
+        o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
                                                 with_lse=True)
-        ro, rlse = flash_attention_fwd_ref(q, k, v, causal=True)
+        ro, rlse = flash_attention_fwd_ref(q, k, v, causal=causal)
         lse_err = float((lse - rlse).abs().max())
         o_err = float((o.float() - ro.float()).abs().max())
         if not (lse_err <= K5_LSE_ATOL and o_err <= K5_TOL[dtype_name]) \
                 or not torch.equal(o, fa_kernel.flash_attention_cuda(
-                    q, k, v, causal=True)):
-            raise AssertionError(f"K5 with lse at {(b, sl, dtype_name)}: lse "
-                                 f"err {lse_err}, o err {o_err}")
+                    q, k, v, causal=causal)):
+            raise AssertionError(f"K5 with lse at {case}: lse err {lse_err}, "
+                                 f"o err {o_err}")
         fn5 = fa_ops.flash_attention
         tc_before = fn5.bwd_tc_launches
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         got5b = torch.autograd.grad(
-            fa_ops.FlashAttentionFn.apply(*leaves, True), leaves, do)
+            fa_ops.FlashAttentionFn.apply(*leaves, causal), leaves, do)
         torch.cuda.synchronize()
         route5b = "tc" if fn5.bwd_tc_launches > tc_before else "simt"
         if route5b != ("simt" if dtype == torch.float32 else "tc") \
                 or route5b != fa_kernel.bwd_route(dtype, hd5, dv5):
             raise AssertionError(f"K5b {dtype_name} at hd {hd5} / {dv5} took "
                                  f"the {route5b} route")
-        plain5b = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        plain5b = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
         errs = {name: rel_err(g, w)
                 for name, g, w in zip(("dq", "dk", "dv"), got5b, plain5b)}
-        if not max(errs.values()) <= K5B_TOL[dtype_name]:
-            raise AssertionError(f"K5b at {(b, sl, dtype_name)}, {h5}/{hkv5} "
-                                 f"heads, hd {hd5} / {dv5}: {errs}")
-        pairs = sl * (sl + 1) // 2
+        again = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                   causal=causal)
+        if not max(errs.values()) <= K5B_TOL[dtype_name] \
+                or not all(torch.equal(g, a) for g, a in zip(got5b, again)):
+            raise AssertionError(f"K5b at {case}, {h5}/{hkv5} heads, hd "
+                                 f"{hd5} / {dv5}: {errs}, or two calls "
+                                 f"differ")
+        del again
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
         # q, k, v, o, dO and lse read once (v, o and dO at the v head dim),
         # dq, dk, dv written once; the five products over the causal pairs:
         # q K^T, dS^T q and dS K at q . k's width, dO V^T and P^T dO at v's
@@ -1082,8 +1149,8 @@ def main() -> int:
                           2 * b * h5 * pairs * (3 * hd5 + 2 * dv5),
                           FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
         k5b_rows.append({
-            "B": b, "S": sl, "H": h5, "Hkv": hkv5, "hd": hd5, "dv": dv5,
-            "causal": True,
+            "B": b, "Sq": sq, "Sk": sk, "H": h5, "Hkv": hkv5, "hd": hd5,
+            "dv": dv5, "causal": causal,
             "dtype": dtype_name, "kernel_route": route5b,
             "k5_lse_max_abs_err": lse_err,
             "max_abs_err": max(float((g.float() - w.float()).abs().max())
@@ -1093,9 +1160,10 @@ def main() -> int:
             "tolerance_of": "max_rel_err (max |d| / max |ref| per gradient)",
             **sdpa_backward_in_turns(
                 lambda i: fa_kernel.flash_attention_bwd_cuda(
-                    q, k, v, o, lse, do, causal=True), q, k, v, do),
+                    q, k, v, o, lse, do, causal=causal), q, k, v, do,
+                causal=causal),
             "plain_ms": cuda_ms(lambda i: flash_attention_bwd_ref(
-                q, k, v, o, lse, do, causal=True), iters=10, warmup=1),
+                q, k, v, o, lse, do, causal=causal), iters=10, warmup=1),
             "bound_ms": b5b, "bound_by": by5b})
         del q, k, v, do, o, lse, ro, rlse, leaves, got5b, plain5b
         torch.cuda.empty_cache()
@@ -1105,7 +1173,7 @@ def main() -> int:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/layers.py:88",
-        "shape": f"B={main5b['B']}, S={main5b['S']}, "
+        "shape": f"B={main5b['B']}, S={main5b['Sq']}, "
                  f"{heads_text(QWEN_HEADS)}, bf16, causal (qwen2.5-3b "
                  "training, a layer)",
         **{key: main5b[key] for key in summary + K5B_SUMMARY}}
@@ -1121,9 +1189,29 @@ def main() -> int:
         "shape": f"B=4, S=1024, {heads_text(QWEN3_MOE_HEADS)}, bf16, causal "
                  "(qwen3-moe training, a layer)",
         **{key: k5b_rows[5][key] for key in summary + K5B_SUMMARY}}
+    for key, heads, sq, sk, site in (
+            ("hd112", ZAMBA2_HEADS, 1024, 1024,
+             "zamba2-7b training, a shared site"),
+            ("whisper_encoder", WHISPER_HEADS, 1500, 1500,
+             "whisper-small training, an encoder layer"),
+            ("whisper_self", WHISPER_HEADS, 448, 448,
+             "whisper-small training, a decoder self attention"),
+            ("whisper_cross", WHISPER_HEADS, 448, 1500,
+             "whisper-small training, a decoder cross attention")):
+        row = next(r for r in k5b_rows
+                   if (r["H"], r["Hkv"], r["hd"], r["dv"]) == v_heads(heads)
+                   and r["dtype"] == "bfloat16"
+                   and (r["Sq"], r["Sk"]) == (sq, sk))
+        mask = "causal" if row["causal"] else "no mask"
+        results["K5b"][key] = {
+            "shape": f"B=8, Sq={sq}, Sk={sk}, {heads_text(heads)}, bf16, "
+                     f"{mask} ({site})",
+            **{k: row[k] for k in summary + K5B_SUMMARY}}
     k6_f32 = k6_check(dev, *k6_random_inputs(dev, gen))
+    results["K6b"] = k6b_check(dev, gen)
     emit({"phase": "kernels", "K1": results["K1"], "K2": results["K2"],
-          "K3": k3_rows, "K5": k5_rows, "K5b": k5b_rows, "K6_f32": k6_f32})
+          "K3": k3_rows, "K5": k5_rows, "K5b": k5b_rows, "K6_f32": k6_f32,
+          "K6b": results["K6b"]})
     results["K7"] = k7_phase(dev, ids)
 
     # -- route ---------------------------------------------------------------
@@ -1292,14 +1380,23 @@ def main() -> int:
     moe_ep_counts = train_moe_ep_phase(dev)
     results["K5"]["launches_train_moe_ep"] = moe_ep_counts["K5"]
     results["K5b"]["launches_train_moe_ep"] = moe_ep_counts["K5b"]
+    for phase, spec in TRAIN_FAMILIES:
+        counts = train_family_phase(dev, phase, spec)
+        for key in ("K5", "K5b", "K6"):
+            if counts[key]:
+                results[key][f"launches_{phase}"] = counts[key]
+        if counts["K6b"]:
+            results["K6b"]["launches"] = counts["K6b"]
     collectives_phase(dev)
     train_lm_counts = train_lm_phase(dev)
     results["K5"]["launches_train_lm"] = train_lm_counts["K5"]
     results["K5b"]["launches_train_lm"] = train_lm_counts["K5b"]
     for key in results:
         results[key]["max_err"] = results[key]["max_abs_err"]
+    if "launches" not in results["K6b"]:
+        raise AssertionError("K6b never ran on a training path")
     emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
-                                           "K5b", "K6", "K7")]})
+                                           "K5b", "K6", "K6b", "K7")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -2201,6 +2298,83 @@ def sfu_ms(exponentials: int) -> float:
         timeout=30, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return exponentials / (sms * SFU_PER_CLOCK * mhz * 1e6) * 1e3
+
+
+def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
+    """K6b (``ssm_scan_bwd_cuda``) against its plain version at ``shape``
+    on K6's random distributions, x, B, C, D and dy in bf16: without h0
+    and dh_last (training's case) and with both.  Each gradient within its
+    K6B_REL of its max |ref|, a second call bit-equal to the first; times,
+    the bound from these inputs and the SFU's floor.  Returns K6b's row
+    (the case without a state; the other under ``with_state``)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    bb, l, din, n = shape
+    x, dt, B, C, A, D, h0 = k6_random_inputs(dev, gen, shape)
+    x, B, C, D = (t.to(torch.bfloat16) for t in (x, B, C, D))
+    dy = torch.randn((bb, l, din), generator=gen, device=dev).to(torch.bfloat16)
+    dh = torch.randn((bb, din, n), generator=gen, device=dev)
+    names = ("dx", "ddt", "dB", "dC", "dA", "dD", "dh0")
+    cases = {}
+    for key, state in (("no_state", False), ("with_state", True)):
+        args = (x, dt, B, C, A, D, h0 if state else None, dy,
+                dh if state else None)
+        got = ssm_kernel.ssm_scan_bwd_cuda(*args)
+        again = ssm_kernel.ssm_scan_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        equal = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+        del again
+        want = ssm_scan_bwd_ref(*args)
+        errs = {nm: rel_err(g, w) for nm, g, w in zip(names, got, want)
+                if w is not None}
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want) if w is not None)
+        del got, want
+        if not all(e <= K6B_REL[nm] for nm, e in errs.items()) \
+                or not equal:
+            raise AssertionError(f"K6b at {shape} ({key}): {errs}, bit-equal "
+                                 f"{equal}")
+        b6b, by6b = k6b_bound(*args)
+        cases[key] = {
+            "max_abs_err": abs_err, "rel_err": errs,
+            "max_rel_err": max(errs.values()), "bit_equal": equal,
+            "ms": cuda_ms(lambda i: ssm_kernel.ssm_scan_bwd_cuda(*args),
+                          iters=10),
+            "plain_ms": cuda_ms(lambda i: ssm_scan_bwd_ref(*args), iters=1,
+                                warmup=0),
+            "library_ms": None, "bound_ms": b6b, "bound_by": by6b,
+            "sfu_ms": sfu_ms(bb * l * din * n),
+            "k6_forward_ms": cuda_ms(lambda i: ssm_kernel.ssm_scan_cuda(
+                *args[:7]), iters=10)}
+        torch.cuda.empty_cache()
+    return {"name": "ssm_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:164",
+            "shape": f"Bb={bb}, L={l}, Din={din}, N={n}, x, B, C, D, dy "
+                     "bf16, no h0 or dh_last (falcon-mamba-7b training, a "
+                     "layer)",
+            "tolerance": K6B_REL,
+            "tolerance_of": "max_rel_err (max |d| / max |ref| per gradient)",
+            **cases["no_state"],
+            "with_state": {"shape": "the same, with h0 and dh_last",
+                           **cases["with_state"]}}
+
+
+def k6b_bound(x, dt, B, C, A, D, h0, dy, dh):
+    """K6b's bound on these inputs: each input read once and each gradient
+    written once; K6B_OPS_* f32 operations; and its exponentials, one a
+    (position, channel, state), on the SFUs (``sfu_ms``), counted as
+    operations."""
+    bb, l, din = x.shape
+    n = A.shape[1]
+    ins = [t for t in (x, dt, B, C, A, D, h0, dy, dh) if t is not None]
+    outs = [x, dt, B, C, A, D] + ([] if h0 is None else [h0])
+    nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+    ops = bb * l * din * (K6B_OPS_STATE * n + K6B_OPS_CHANNEL)
+    ms, by = bound(nbytes, ops, FP32_FLOPS)
+    sfu = sfu_ms(bb * l * din * n)
+    return (sfu, "operations") if sfu > ms else (ms, by)
 
 
 def serve_ssm_phase(dev, rng) -> dict:
@@ -3487,6 +3661,207 @@ def train_mla_phase(dev) -> dict:
         raise AssertionError(f"train_mla step: launches {step_counts}, want "
                              f"{per_step}; finite {finite}, loss {row['loss']}")
     return {**counts, "step": step_counts}
+
+
+def _zero_k6(fn) -> None:
+    fn.launches = fn.bwd_launches = 0
+
+
+def _k56_counts(fa, sc) -> dict:
+    return {**_k5_counts(fa), "K6": sc.launches, "K6b": sc.bwd_launches}
+
+
+def _plain_ssm_fn():
+    """``SsmScanFn`` with the plain versions on any device (the reference
+    of the train gates; the port never runs it on the card)."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+
+    class PlainSsmScanFn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, B, C, A, D, h0):
+            ctx.save_for_backward(x, dt, B, C, A, D, h0)
+            ctx.set_materialize_grads(False)
+            return ssm_scan_ref(x, dt, B, C, A, D, h0)
+
+        @staticmethod
+        def backward(ctx, dy, dh_last):
+            return ssm_scan_bwd_ref(*ctx.saved_tensors, dy, dh_last)
+    return PlainSsmScanFn
+
+
+def train_family_phase(dev, phase: str, spec) -> dict:
+    """One family of ``TRAIN_FAMILIES`` training on the card: random
+    weights from the seed, bf16, remat full, a warm-up and ``steps`` timed
+    ``make_train_step`` steps with AdamW on one repeated batch of
+    ``SyntheticLM`` (whisper: and stub frames N(0, 0.02^2)).  Gates: the
+    loss finite and falling; K5 / K5b and K6 / K6b launches a step (the
+    counters zeroed before the first step: each attention call and each
+    Mamba-1 scan once in the forward and once in the recompute, each
+    backward once); at full width and ``TRAIN_GATE_LAYERS`` layers, one
+    step's loss within TRAIN_LOSS_RTOL and each leaf within
+    TRAIN_GRAD_BOUND of max |g| of the same step with ``FlashAttentionFn``
+    and ``SsmScanFn`` on the plain versions (K6b's plain version is the
+    reverse recurrence, so the gate runs at the phase's own batch).
+    Prints ms a step, tokens/s, peak memory and the kernels' device ms a
+    step (torch.profiler over one more step); returns the counts of the
+    timed steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models import Model, hybrid
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
+
+    arch, depth, b, s, steps = spec
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if depth:
+        cfg = cfg.with_overrides(num_layers=depth)
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} trains with remat {cfg.remat}, "
+                             f"{cfg.dtype}")
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    opt_cfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, total_steps=1000)
+    opt = adamw.init_state(params, opt_cfg)
+    step = make_train_step(model, TrainConfig(opt=opt_cfg))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                                  seed=SEED))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    if cfg.family == "encdec":
+        batch["frames"] = (torch.randn(
+            (b, cfg.audio_frames, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+            * 0.02).to(layers.dt(cfg))
+
+    def per_step(c):
+        """K5 / K5b and K6 / K6b launches a step of config ``c``."""
+        calls = hybrid.num_shared_sites(c) if c.family == "hybrid" else \
+            c.encoder_layers + 2 * c.num_layers if c.family == "encdec" else 0
+        scans = c.num_layers if c.family in ("ssm", "hybrid") \
+            and c.mamba_version == 1 else 0
+        twice = 1 if c.remat == "none" else 2
+        return {"K5": twice * calls, "K5_tc": twice * calls, "K5b": calls,
+                "K5b_tc": calls, "K6": twice * scans, "K6b": scans}
+    want = per_step(cfg)
+    fa, sc = fa_ops.flash_attention, ssm_ops.ssm_scan
+    _zero_k5(fa)
+    _zero_k6(sc)
+    mets, times, first = [], [], None
+    for i in range(1 + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mets.append(met)
+        if i == 0:
+            first = _k56_counts(fa, sc)
+    counts = _k56_counts(fa, sc)
+    if first != want or counts != {k: n * (1 + steps)
+                                   for k, n in want.items()}:
+        raise AssertionError(f"{phase}: launch counts {first} in the first "
+                             f"step, {counts} in all, want {want} a step")
+    losses = [float(m["loss"]) for m in mets]
+    norms = [float(m["grad_norm"]) for m in mets]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: losses {losses}, grad norms {norms}")
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    dev_ms = {"K5": 0.0, "K5b": 0.0, "K6": 0.0, "K6b": 0.0, "all": 0.0}
+    for row in prof.key_averages():
+        ms = row.self_device_time_total / 1e3
+        dev_ms["all"] += ms
+        if "flash_tc_kernel<" in row.key or "flash_kernel<" in row.key:
+            dev_ms["K5"] += ms
+        elif any(name in row.key for name in K5B_KERNELS):
+            dev_ms["K5b"] += ms
+        elif any(name in row.key for name in K6_KERNELS):
+            dev_ms["K6"] += ms
+        elif any(name in row.key for name in K6B_KERNELS):
+            dev_ms["K6b"] += ms
+    step_s = float(np.median(times[1:]))
+    del params, opt, met, mets, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gate at full width and TRAIN_GATE_LAYERS layers (and encoder
+    # layers): one step's loss and gradients with the kernels against the
+    # plain versions (no kernel may launch there)
+    small = {"num_layers": TRAIN_GATE_LAYERS}
+    if cfg.family == "encdec":
+        small["encoder_layers"] = TRAIN_GATE_LAYERS
+    cfg2 = cfg.with_overrides(**small)
+    model2 = Model(cfg2)
+    params2 = model2.init(torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    _zero_k5(fa)
+    _zero_k6(sc)
+    loss_k, grads_k = _value_and_grad(model2, params2, batch)
+    launched = _k56_counts(fa, sc)
+    gate_want = per_step(cfg2)
+    saved = layers.FlashAttentionFn, ssm_ops.SsmScanFn
+    layers.FlashAttentionFn, ssm_ops.SsmScanFn = _plain_flash_fn(), \
+        _plain_ssm_fn()
+    try:
+        loss_p, grads_p = _value_and_grad(model2, params2, batch)
+    finally:
+        layers.FlashAttentionFn, ssm_ops.SsmScanFn = saved
+    if _k56_counts(fa, sc) != launched or launched != gate_want:
+        raise AssertionError(f"{phase} gate: launches {launched} (want "
+                             f"{gate_want}), {_k56_counts(fa, sc)} after "
+                             f"the plain step")
+    names = [n for n, _ in _paths(params2)]
+    leaf_errs = {n: rel_err(gk, gp) for n, gk, gp in zip(names, grads_k,
+                                                         grads_p)}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(leaf_errs, key=leaf_errs.get)
+    del params2, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = b * s
+    row = {"phase": phase, "model": cfg.name, "params": n_params,
+           "layers": cfg.num_layers, "full_layers": full_layers,
+           "cut": f"depth {full_layers} -> {cfg.num_layers} layers, full "
+                  "width" if depth else None,
+           "batch": b, "seq": s, "remat": cfg.remat, "dtype": cfg.dtype,
+           "losses": losses, "grad_norms": norms,
+           "step_ms": [t * 1e3 for t in times],
+           "ms_per_step_median": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "max_memory_allocated_gib": peak / 2**30,
+           "device_ms_per_step": dev_ms, "launches_per_step": first,
+           "launches": counts,
+           "gate": {"layers": TRAIN_GATE_LAYERS,
+                    "loss_kernels": float(loss_k),
+                    "loss_plain": float(loss_p), "loss_rel": loss_rel,
+                    "loss_rtol": TRAIN_LOSS_RTOL, "worst_leaf": worst,
+                    "worst_leaf_rel_err": leaf_errs[worst],
+                    "bound": TRAIN_GRAD_BOUND, "batch": b,
+                    "launches": launched},
+           "nvidia_smi": _smi()}
+    if cfg.family == "encdec":
+        row["frames"] = cfg.audio_frames
+    emit(row)
+    if not loss_rel <= TRAIN_LOSS_RTOL \
+            or not leaf_errs[worst] <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"{phase} gate: loss {float(loss_k)} vs "
+                             f"{float(loss_p)}, worst leaf {worst} "
+                             f"{leaf_errs[worst]}")
+    return counts
 
 
 def _gspmd_drops(ids, cfg) -> int:

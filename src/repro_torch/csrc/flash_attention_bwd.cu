@@ -20,9 +20,9 @@
 // dS^T q, dS K) are 2 B H pairs (3 dqk + 2 dv) = 86 GFLOP, 0.087 ms at the
 // tensor cores' 989 TFLOP/s, against 50 MB of inputs and outputs
 // (0.015 ms): the operations bind, and only wgmma reaches that rate.  The
-// tensor-core route (bf16, fp16 at (hd, v hd) in {(64, 64), (128, 128),
-// (192, 128)}) is built from K5's forward design (flash_attention_tc.cu)
-// and stays deterministic: no atomics, each block writes its rows of dQ,
+// tensor-core route (bf16, fp16 at (hd, v hd) in {(64, 64), (112, 112),
+// (128, 128), (192, 128)}) is built from K5's forward design
+// (flash_attention_tc.cu) and stays deterministic: no atomics, each block writes its rows of dQ,
 // dK or dV once.  Three launches, seven products (the dQ kernel computes
 // q K^T and dO V^T again):
 //   * bwd_prep_kernel: D = rowsum(dO * o), a row per 16-byte lane group,
@@ -67,8 +67,16 @@
 //
 // f32 at hd 64 and 128 runs FA2's schedule on the CUDA cores in f32 (256
 // threads a block, 4 x 4 outputs a thread), whose 1e-4 tolerance the
-// tensor cores cannot meet.  Other head dims (112, 16, 32; f32 at
-// (192, 128)) have no backward; the wrapper refuses them.
+// tensor cores cannot meet.  hd 112 (zamba2's shared block) runs, as in
+// K5's forward, on the 128-wide tiles: the tensor maps carry the true
+// inner extent 112, so the TMA fills columns 112-127 of q, K, V and dO
+// with zeros, which add 0 to S and dP, make those columns of dq, dk and
+// dv zero, and are never stored (the price: 128/112 of the products).
+// Other head dims (16, 32; f32 at 112 and at (192, 128)) have no
+// backward; the wrapper refuses them.  Unmasked attention takes any Sq
+// and Sk (whisper's encoder, 1500 x 1500, and its cross attention, 448
+// over 1500): keys >= Sk, whose rows the TMA fills with zeros, get P = 0,
+// and queries >= Sq have lse = +inf.
 
 #include <cmath>
 
@@ -118,21 +126,23 @@ __global__ void bwd_delta_kernel(const T* __restrict__ out, const T* __restrict_
 // ---------------------------------------------------------------------------
 
 // D and lse * log2 e into rows of Sq_pad (rows past Sq: D 0, lse +inf).
-// kPer = HDV / 8 threads a (batch, position, head) row, 16 bytes each of
-// o and dO; threads past the rows write the padding.
+// kPer = HDV / 8 threads a (batch, position, head) row of hdv <= HDV
+// values, 16 bytes each of o and dO (those past hdv add nothing); threads
+// past the rows write the padding.
 template <typename T, int HDV>
 __global__ void __launch_bounds__(256)
     bwd_prep_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ lse2,
-                    float* __restrict__ delta, int rows, int pad_rows, int Sq, int Sq_pad, int H) {
+                    float* __restrict__ delta, int rows, int pad_rows, int Sq, int Sq_pad, int H,
+                    int hdv) {
   constexpr int kPer = HDV / 8;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long row = t / kPer;
   const int part = static_cast<int>(t % kPer);
   float acc = 0.f;
-  if (row < rows) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(out + row * HDV + part * 8);
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout + row * HDV + part * 8);
+  if (row < rows && part * 8 < hdv) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(out + row * hdv + part * 8);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + row * hdv + part * 8);
     const T* o8 = reinterpret_cast<const T*>(&ov);
     const T* d8 = reinterpret_cast<const T*>(&dv);
 #pragma unroll
@@ -217,7 +227,7 @@ __global__ void __launch_bounds__(2 * kWg, 1)
                           const __grid_constant__ CUtensorMap domap,   // boxes of a step
                           const float* __restrict__ lse2, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-                          int Sq_pad, float scale, int causal) {
+                          int Sq_pad, float scale, int causal, int hd, int hdv) {
   using L = Bwd<HDQK, HDV>;
   constexpr int BQ = L::kStep;
   constexpr int NQK = L::kQkBoxes;
@@ -427,18 +437,20 @@ __global__ void __launch_bounds__(2 * kWg, 1)
     const int key = k0 + r0 + 8 * i;
     if (key >= Sk) continue;
     const size_t row = (static_cast<size_t>(b) * Sk + key) * Hkv + kh;
-    T* const dk_row = dk + row * HDQK;
-    T* const dv_row = dv + row * HDV;
+    T* const dk_row = dk + row * hd;
+    T* const dv_row = dv + row * hdv;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
 #pragma unroll
       for (int bx = 0; bx < NQK; ++bx)
-        store2<T>(dk_row + bx * kBoxCols + 8 * c + cq, dk_acc[bx][4 * c + 2 * i] * scale,
-                  dk_acc[bx][4 * c + 2 * i + 1] * scale);
+        if (bx * kBoxCols + 8 * c < hd)   // hd 112 on the 128-wide tiles
+          store2<T>(dk_row + bx * kBoxCols + 8 * c + cq, dk_acc[bx][4 * c + 2 * i] * scale,
+                    dk_acc[bx][4 * c + 2 * i + 1] * scale);
 #pragma unroll
       for (int bx = 0; bx < NV; ++bx)
-        store2<T>(dv_row + bx * kBoxCols + 8 * c + cq, dv_acc[bx][4 * c + 2 * i],
-                  dv_acc[bx][4 * c + 2 * i + 1]);
+        if (bx * kBoxCols + 8 * c < hdv)
+          store2<T>(dv_row + bx * kBoxCols + 8 * c + cq, dv_acc[bx][4 * c + 2 * i],
+                    dv_acc[bx][4 * c + 2 * i + 1]);
     }
   }
 }
@@ -451,7 +463,7 @@ __global__ void __launch_bounds__(kWg, 2)
                         const __grid_constant__ CUtensorMap domap,   // boxes of 64 rows
                         const float* __restrict__ lse2, const float* __restrict__ delta,
                         T* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int Sq_pad,
-                        float scale, int causal) {
+                        float scale, int causal, int hd) {
   using L = Bwd<HDQK, HDV>;
   constexpr int BK = L::kStep;
   constexpr int NQK = L::kQkBoxes;
@@ -602,13 +614,14 @@ __global__ void __launch_bounds__(kWg, 2)
   for (int i = 0; i < 2; ++i) {
     const int qpos = q0 + r0 + 8 * i;
     if (qpos >= Sq) continue;
-    T* const dq_row = dq + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * HDQK;
+    T* const dq_row = dq + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * hd;
 #pragma unroll
     for (int c = 0; c < 8; ++c)
 #pragma unroll
       for (int bx = 0; bx < NQK; ++bx)
-        store2<T>(dq_row + bx * kBoxCols + 8 * c + cq, dq_acc[bx][4 * c + 2 * i] * scale,
-                  dq_acc[bx][4 * c + 2 * i + 1] * scale);
+        if (bx * kBoxCols + 8 * c < hd)   // hd 112 on the 128-wide tiles
+          store2<T>(dq_row + bx * kBoxCols + 8 * c + cq, dq_acc[bx][4 * c + 2 * i] * scale,
+                    dq_acc[bx][4 * c + 2 * i + 1] * scale);
   }
 }
 
@@ -920,8 +933,12 @@ int opt_in(K kernel, int smem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
+// HDQK and HDV: the tiles' widths; hd <= HDQK and hdv <= HDV the tensors'
+// (hd 112 runs on the 128-wide tiles: the tensor maps' inner extent is
+// 112, so the TMA fills columns 112-127 with zeros, which add nothing to
+// S or dP, and the kernels store hd or hdv columns)
 template <typename T, int HDQK, int HDV>
-int launch_tc(const Args& a) {
+int launch_tc(const Args& a, int hd, int hdv) {
   using L = Bwd<HDQK, HDV>;
   const int sq_pad = (a.Sq + kPadTo - 1) / kPadTo * kPadTo;
   float* const lse2 = a.delta;
@@ -931,14 +948,13 @@ int launch_tc(const Args& a) {
   const long long threads = static_cast<long long>(rows + pad_rows) * (HDV / 8);
   bwd_prep_kernel<T, HDV><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, a.stream>>>(
       static_cast<const T*>(a.out), static_cast<const T*>(a.dout), a.lse, lse2, delta, rows,
-      pad_rows, a.Sq, sq_pad, a.H);
+      pad_rows, a.Sq, sq_pad, a.H, hdv);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   // boxes of 64 rows (the tiles a block keeps) and of a step (the rings')
   constexpr CUtensorMapDataType type = map_type<T>();
   CUtensorMap q64, qs, k64, ks, v64, vs, do64, dos;
-  const int hd = HDQK, hdv = HDV;
   err = make_map(&q64, type, a.q, hd, a.H, a.Sq, a.B, kRows);
   if (!err) err = make_map(&qs, type, a.q, hd, a.H, a.Sq, a.B, L::kStep);
   if (!err) err = make_map(&k64, type, a.k, hd, a.Hkv, a.Sk, a.B, kKeys);
@@ -953,21 +969,22 @@ int launch_tc(const Args& a) {
   bwd_dkdv_wgmma_kernel<T, HDQK, HDV>
       <<<dim3(a.B * a.Hkv, (a.Sk + kKeys - 1) / kKeys), 2 * kWg, L::kDkDvSmem, a.stream>>>(
           qs, k64, v64, dos, lse2, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq,
-          a.Sk, a.H, a.Hkv, sq_pad, a.scale, a.causal);
+          a.Sk, a.H, a.Hkv, sq_pad, a.scale, a.causal, hd, hdv);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   if ((err = opt_in(bwd_dq_wgmma_kernel<T, HDQK, HDV>, L::kDqSmem))) return err;
   bwd_dq_wgmma_kernel<T, HDQK, HDV>
       <<<dim3(a.B * a.H, (a.Sq + kRows - 1) / kRows), kWg, L::kDqSmem, a.stream>>>(
           q64, ks, vs, do64, lse2, delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.Hkv, sq_pad,
-          a.scale, a.causal);
+          a.scale, a.causal, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_tc_hd(const Args& a, int hd, int hdv) {
-  if (hd == 192 && hdv == 128) return launch_tc<T, 192, 128>(a);   // MLA
-  if (hd == 128 && hdv == 128) return launch_tc<T, 128, 128>(a);
-  if (hd == 64 && hdv == 64) return launch_tc<T, 64, 64>(a);
+  if (hd == 192 && hdv == 128) return launch_tc<T, 192, 128>(a, hd, hdv);   // MLA
+  if ((hd == 128 || hd == 112) && hdv == hd)   // 112: on the 128-wide tiles
+    return launch_tc<T, 128, 128>(a, hd, hdv);
+  if (hd == 64 && hdv == 64) return launch_tc<T, 64, 64>(a, hd, hdv);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1040,7 +1057,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
 }
 
 // The tensor-core route (dtype 1 = bfloat16, 2 = float16; (hd, hdv) in
-// {(64, 64), (128, 128), (192, 128)}; q, k, v, out, dout 16-byte aligned;
+// {(64, 64), (112, 112), (128, 128), (192, 128)}; q, k, v, out, dout 16-byte aligned;
 // delta: f32 scratch of 2 x B x H x Sq rounded up to a multiple of 64):
 extern "C" int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v,
                                              const void* out, const void* dout, const void* lse,

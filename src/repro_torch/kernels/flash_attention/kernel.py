@@ -17,9 +17,11 @@ K5b ``flash_attention_bwd_cuda`` has no TPU counterpart (``repro``
 differentiates its jnp flash path with ``jax.grad``): it takes the
 forward's q, k, v, o, lse and dO and returns dq, dk, dv in three
 launches (D = rowsum(dO o), dK/dV, dQ), on the tensor cores (wgmma, TMA)
-for bf16 and fp16 at (hd, v hd) in ``BWD_HEAD_DIMS`` (MLA's (192, 128)
-among them) and on the CUDA cores for f32 at ``BWD_SIMT_HEAD_DIMS``
-(``bwd_route``), causal only with Sq == Sk; anything else raises
+for bf16 and fp16 at (hd, v hd) in ``BWD_HEAD_DIMS`` (zamba2's hd 112
+and MLA's (192, 128) among them) and on the CUDA cores for f32 at
+``BWD_SIMT_HEAD_DIMS`` (``bwd_route``), causal only with Sq == Sk,
+unmasked at any Sq and Sk (whisper's encoder and cross attention);
+anything else raises
 ``ValueError`` before a launch.  The design notes sit in the
 CUDA sources.  Outputs and scratch are allocated here with
 ``torch.empty``; the kernels launch on the current stream and do not
@@ -41,7 +43,8 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128),
 TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))  # tensor cores'
 BQ = 64                             # query rows per block (both kernels)
-BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))  # K5b's tensor cores'
+BWD_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))  # K5b's
+# tensor cores' (hd 112 on the hd-128 tiles, as K5's forward)
 BWD_SIMT_HEAD_DIMS = ((64, 64), (128, 128))          # K5b's f32 kernels'
 
 
@@ -55,9 +58,10 @@ def route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
 
 def bwd_route(dtype: torch.dtype, dqk: int, dv: Optional[int] = None) -> str:
     """K5b's route: ``"tc"`` for bf16/fp16 at (dqk, dv) in
-    ``BWD_HEAD_DIMS``, ``"simt"`` for f32 at ``BWD_SIMT_HEAD_DIMS`` (dv
-    defaults to dqk); raises ``ValueError`` for any other type or head
-    dims (hd 112, 16, 32, and f32 at MLA's (192, 128))."""
+    ``BWD_HEAD_DIMS`` (zamba2's hd 112 among them), ``"simt"`` for f32 at
+    ``BWD_SIMT_HEAD_DIMS`` (dv defaults to dqk); raises ``ValueError`` for
+    any other type or head dims (hd 16 and 32, and f32 at hd 112 and at
+    MLA's (192, 128))."""
     dv = dqk if dv is None else dv
     if dtype in TC_DTYPES and (dqk, dv) in BWD_HEAD_DIMS:
         return "tc"

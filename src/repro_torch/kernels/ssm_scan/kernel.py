@@ -1,9 +1,14 @@
-"""Launcher of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``).
+"""Launchers of the CUDA selective-scan kernels (``csrc/ssm_scan.cu``, K6,
+and ``csrc/ssm_scan_bwd.cu``, its gradient, K6b).
 
 K6 ``ssm_scan_cuda`` replaces ``ssm_scan_pallas``
-(``repro/kernels/ssm_scan/kernel.py``); the design notes sit in the CUDA
-source.  y and h_last are allocated here with ``torch.empty``; the
-kernel launches on the current stream and does not synchronise.
+(``repro/kernels/ssm_scan/kernel.py``).  K6b ``ssm_scan_bwd_cuda`` has no
+TPU counterpart (``repro`` differentiates its jnp scan with
+``jax.grad``): it takes K6's inputs and the gradients of y and h_last and
+returns the inputs' gradients in two launches (the scan, then the sums
+across blocks).  The design notes sit in the CUDA sources.  Outputs and
+scratch are allocated here with ``torch.empty``; the kernels launch on
+the current stream and do not synchronise.
 """
 from __future__ import annotations
 
@@ -15,6 +20,43 @@ from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_STATE = 32          # the kernel's shared-memory tiles hold 32 states
+# K6b's tile of positions and block of channels (kTile, kChannels in
+# csrc/ssm_scan_bwd.cu), which size its scratch
+BWD_TILE = 64
+BWD_CHANNELS = 32
+
+
+def _check(name: str, x, dt, B, C, A, D, h0) -> None:
+    """The inputs K6 and K6b take: one CUDA device, contiguous, x, B, C
+    and D in one of ``_DTYPES``, dt, A and h0 f32, matching shapes, 1 <= N
+    <= ``MAX_STATE``, Bb <= 65535, nothing empty; else ``ValueError``."""
+    tensors = [x, dt, B, C, A, D] + ([] if h0 is None else [h0])
+    dev = x.device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expects tensors on one CUDA device, "
+                             f"got {[str(u.device) for u in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (B, C, D)):
+        raise ValueError(f"{name}: x, B, C, D must share one of "
+                         f"{list(_DTYPES)}, got {x.dtype}, {B.dtype}, "
+                         f"{C.dtype}, {D.dtype}")
+    if any(t.dtype != torch.float32 for t in [dt, A] + tensors[6:]):
+        raise ValueError(f"{name}: dt, A and h0 must be float32")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (Bb, L, Din), got {x.shape}")
+    bb, l, din = x.shape
+    n = A.shape[-1]
+    if dt.shape != x.shape or B.shape != (bb, l, n) or C.shape != B.shape \
+            or A.shape != (din, n) or D.shape != (din,) \
+            or (h0 is not None and h0.shape != (bb, din, n)):
+        raise ValueError(f"{name}: mismatched shapes")
+    if not 1 <= n <= MAX_STATE or bb > 65535:
+        raise ValueError(f"{name}: takes 1 <= N <= {MAX_STATE} and "
+                         f"Bb <= 65535, got N={n}, Bb={bb}")
+    if not x.numel():
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
 
 
 def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -24,33 +66,10 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     """x: (Bb,L,Din); dt: (Bb,L,Din) f32; B, C: (Bb,L,N); A: (Din,N) f32;
     D: (Din,); h0: (Bb,Din,N) f32 or None.  x, B, C and D share one
     dtype (f32, bf16 or f16).  -> (y (Bb,L,Din) x.dtype, h_last f32)."""
-    tensors = [x, dt, B, C, A, D] + ([] if h0 is None else [h0])
-    dev = x.device
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError("ssm_scan: expects tensors on one CUDA device, "
-                             f"got {[str(u.device) for u in tensors]}")
-        if not t.is_contiguous():
-            raise ValueError("ssm_scan: expects contiguous tensors")
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (B, C, D)):
-        raise ValueError(f"ssm_scan: x, B, C, D must share one of "
-                         f"{list(_DTYPES)}, got {x.dtype}, {B.dtype}, "
-                         f"{C.dtype}, {D.dtype}")
-    if any(t.dtype != torch.float32 for t in [dt, A] + tensors[6:]):
-        raise ValueError("ssm_scan: dt, A and h0 must be float32")
-    if x.dim() != 3:
-        raise ValueError(f"ssm_scan: x must be (Bb, L, Din), got {x.shape}")
+    _check("ssm_scan", x, dt, B, C, A, D, h0)
     bb, l, din = x.shape
     n = A.shape[-1]
-    if dt.shape != x.shape or B.shape != (bb, l, n) or C.shape != B.shape \
-            or A.shape != (din, n) or D.shape != (din,) \
-            or (h0 is not None and h0.shape != (bb, din, n)):
-        raise ValueError("ssm_scan: mismatched shapes")
-    if not 1 <= n <= MAX_STATE or bb > 65535:
-        raise ValueError(f"ssm_scan: takes 1 <= N <= {MAX_STATE} and "
-                         f"Bb <= 65535, got N={n}, Bb={bb}")
-    if not x.numel():
-        raise ValueError(f"ssm_scan: empty input {tuple(x.shape)}")
+    dev = x.device
     y = torch.empty_like(x)
     h_last = torch.empty((bb, din, n), dtype=torch.float32, device=dev)
     build.launch("ssm_scan_launch", x.data_ptr(), dt.data_ptr(),
@@ -59,3 +78,47 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                  h_last.data_ptr(), bb, l, din, n, _DTYPES[x.dtype],
                  torch.cuda.current_stream(dev).cuda_stream)
     return y, h_last
+
+
+def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: Optional[torch.Tensor],
+                      dh_last: Optional[torch.Tensor]):
+    """K6b: the gradients (dx, ddt, dB, dC, dA, dD, dh0) of
+    ``ssm_scan_cuda`` at its inputs, from dy (Bb,L,Din) in x's dtype and
+    dh_last (Bb,Din,N) f32 (either None: zeros).  dx, dB, dC, dD in x's
+    dtype; ddt, dA, dh0 f32; dh0 is None when h0 is."""
+    _check("ssm_scan backward", x, dt, B, C, A, D, h0)
+    bb, l, din = x.shape
+    n = A.shape[-1]
+    dev = x.device
+    if dy is None:
+        dy = torch.zeros_like(x)
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+        raise ValueError(f"ssm_scan backward: dy must be {x.dtype} "
+                         f"{tuple(x.shape)} on {dev}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    if dh_last is not None:
+        dh_last = dh_last.contiguous()
+        if dh_last.shape != (bb, din, n) or dh_last.dtype != torch.float32 \
+                or dh_last.device != dev:
+            raise ValueError(f"ssm_scan backward: dh_last must be f32 "
+                             f"{(bb, din, n)} on {dev}")
+    dx, dB, dC, dD = (torch.empty_like(t) for t in (x, B, C, D))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    tiles = -(-l // BWD_TILE)
+    blocks = -(-din // BWD_CHANNELS)
+    floats = bb * (tiles * n * din + 2 * blocks * l * n + din * n + din)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    build.launch("ssm_scan_bwd_launch", x.data_ptr(), dt.data_ptr(),
+                 B.data_ptr(), C.data_ptr(), A.data_ptr(), D.data_ptr(),
+                 0 if h0 is None else h0.data_ptr(), dy.data_ptr(),
+                 0 if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+                 ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+                 dD.data_ptr(), 0 if dh0 is None else dh0.data_ptr(),
+                 scratch.data_ptr(), floats, bb, l, din, n, _DTYPES[x.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    return dx, ddt, dB, dC, dA, dD, dh0

@@ -1,14 +1,21 @@
-"""Public selective-scan wrapper: CPU tensors take the plain version,
-CUDA tensors launch the CUDA kernel (or raise).  ``ssm_scan.launches``
-counts kernel launches."""
+"""Public selective-scan wrappers: CPU tensors take the plain versions,
+CUDA tensors launch the CUDA kernels (or raise).
+
+``ssm_scan`` is K6, through ``SsmScanFn`` on the serve path and in
+training alike (outside autograd ``Function.apply`` records no graph);
+``ssm_scan.launches`` counts its kernel launches.  The backward is K6b
+(``ssm_scan_bwd_cuda``, or ``ssm_scan_bwd_ref`` on the CPU);
+``ssm_scan.bwd_launches`` counts K6b's calls (each two kernel launches:
+the scan, then the sums across blocks).
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
-from .kernel import ssm_scan_cuda
-from .ref import ssm_scan_ref
+from .kernel import ssm_scan_bwd_cuda, ssm_scan_cuda
+from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -17,12 +24,35 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt: (Bb,L,Din); B, C: (Bb,L,N); A: (Din,N); D: (Din,);
     h0: (Bb,Din,N) or None -> (y (Bb,L,Din) x.dtype, h_last (Bb,Din,N)
-    f32) (K6)."""
-    if x.device.type == "cpu":
-        return ssm_scan_ref(x, dt, B, C, A, D, h0)
-    out = ssm_scan_cuda(x, dt, B, C, A, D, h0)
-    ssm_scan.launches += 1
-    return out
+    f32): ``SsmScanFn``, which records nothing outside autograd."""
+    return SsmScanFn.apply(x, dt, B, C, A, D, h0)
 
 
 ssm_scan.launches = 0
+ssm_scan.bwd_launches = 0
+
+
+class SsmScanFn(torch.autograd.Function):
+    """``ssm_scan`` with a gradient: ``SsmScanFn.apply(x, dt, B, C, A, D,
+    h0)``.  It saves its inputs alone; the backward recomputes the states
+    from them.  Each gradient comes in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, D, h0):
+        if x.device.type == "cpu":
+            y, h_last = ssm_scan_ref(x, dt, B, C, A, D, h0)
+        else:
+            y, h_last = ssm_scan_cuda(x, dt, B, C, A, D, h0)
+            ssm_scan.launches += 1
+        ctx.save_for_backward(x, dt, B, C, A, D, h0)
+        ctx.set_materialize_grads(False)     # an unused output: None, not 0
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, B, C, A, D, h0 = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return ssm_scan_bwd_ref(x, dt, B, C, A, D, h0, dy, dh_last)
+        grads = ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh_last)
+        ssm_scan.bwd_launches += 1
+        return grads

@@ -18,6 +18,13 @@ attention runs K5 in the prefill and K3 in decode (lockstep: every row at
 the same position); its cross attention runs K5 (without a mask, Sq = the
 prompt over Sk = T) in the prefill and K3 (every row's length T) in
 decode (``layers.cross_attention``).
+
+Training (``train_loss``) follows ``repro``'s: the encoder and the
+decoder each layer under ``cfg.remat``, and each decoder layer projects
+its cross K/V from the encoder output itself (``layers.attention`` with
+``kv_x``), so the cross attention runs K5 without a mask at Sq = the
+tokens over Sk = the frames, and K5b takes the gradient back into the
+encoder output and ``xattn``'s ``wk`` and ``wv``.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from .remat import layer_slices, remat
 from .transformer import _map
 
 Params = Dict[str, Any]
@@ -80,36 +88,76 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             else leaf(k, v, False) for k, v in shapes.items()}
 
 
-def encode(params: Params, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
+           train: bool = False) -> torch.Tensor:
     """frames: the stub conv frontend's output (B, T, d) -> the encoder's
-    normed output (B, T, d)."""
+    normed output (B, T, d); with ``train``, each layer under
+    ``cfg.remat``."""
     b, t, d = frames.shape
     pos = torch.arange(t, device=frames.device)
     x = frames.to(L.dt(cfg)) + _sinusoid(pos, d, L.dt(cfg))[None]
     positions = pos.expand(b, t)
-    for i in range(cfg.encoder_layers):
-        lp = _map(lambda t: t[i], params["encoder"])
+
+    def body(lp, x):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = L.attention(lp["attn"], h, cfg, positions=positions,
                            causal=False, use_rope=False)
         x = x + a
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg)
+        return x + L.mlp(lp["mlp"], h, cfg)
+
+    layer = remat(cfg, body) if train else body
+    for lp in layer_slices(params["encoder"], cfg.encoder_layers):
+        x = layer(lp, x)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
 def _dec_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
-              positions: torch.Tensor, self_cache: Tuple, cache_index: int,
-              cross_kv: Tuple) -> torch.Tensor:
+              positions: torch.Tensor, self_cache: Optional[Tuple] = None,
+              cache_index: Optional[int] = None,
+              cross_kv: Optional[Tuple] = None,
+              enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A decoder layer: self attention (over the cache, or causal over the
+    fresh segment without one), cross attention (over the cached encoder
+    K/V, or, in training, over K/V projected from ``enc_out`` here, with
+    ``xattn``'s biases as ``repro``'s), the MLP."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, _ = L.attention(lp["attn"], h, cfg, positions=positions,
                        cache=self_cache, cache_index=cache_index)
     x = x + a
     h = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
-    x = x + L.cross_attention(lp["xattn"], h, *cross_kv, cfg)
+    if cross_kv is not None:
+        x = x + L.cross_attention(lp["xattn"], h, *cross_kv, cfg)
+    else:
+        a, _ = L.attention(lp["xattn"], h, cfg, positions=positions,
+                           causal=False, use_rope=False, kv_x=enc_out)
+        x = x + a
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.mlp(lp["mlp"], h, cfg)
+
+
+def train_loss(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of the decoder over
+    ``batch["tokens"]`` against ``batch["labels"]``, given the stub
+    frames ``batch["frames"]`` (B, T, d) (``repro``'s ``train_loss``)."""
+    frames, tokens, labels = batch["frames"], batch["tokens"], \
+        batch["labels"]
+    enc_out = encode(params, frames, cfg, train=True)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device)
+    x = L.embed(params["embed"], tokens, cfg) \
+        + _sinusoid(pos, cfg.d_model, L.dt(cfg))[None]
+    positions = pos.expand(b, s)
+
+    def body(lp, x, enc_out):
+        return _dec_body(cfg, lp, x, positions=positions, enc_out=enc_out)
+
+    layer = remat(cfg, body)
+    for lp in layer_slices(params["decoder"], cfg.num_layers):
+        x = layer(lp, x, enc_out)
+    h = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.chunked_ce_loss(params["embed"], h, labels, cfg)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int,

@@ -21,16 +21,24 @@ The shared block's prefill attention runs on K5 and its decode on K3.
 The family decodes in lockstep: every row writes its K/V at the same
 position and attends over [0, index], as in ``repro``, so a row shorter
 than the longest also attends over the zero rows it never wrote.
+
+Training (``train_loss``) runs ``train_backbone``, ``repro``'s
+``backbone`` on its ``state is None`` path: each Mamba layer from a zero state
+(Mamba-1's scan on K6 and K6b) under ``cfg.remat``, and the shared block
+at each site causal on ``layers.flash_attention`` (K5 and K5b), recomputed
+whole in the backward whenever ``cfg.remat`` is not ``"none"`` (``repro``
+checkpoints it with nothing saved: the block runs at ~N/k sites).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
 from . import ssm as S
+from .remat import layer_slices, remat
 
 Params = Dict[str, Any]
 
@@ -124,10 +132,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _shared_block(cfg: ModelConfig, sp: Params, x: torch.Tensor, *,
-                  positions: torch.Tensor, cache: Tuple,
-                  cache_index: int) -> torch.Tensor:
-    """The shared transformer block at one site: attention over the
-    site's KV cache, then the MLP, each with its residual."""
+                  positions: torch.Tensor, cache: Optional[Tuple] = None,
+                  cache_index: Optional[int] = None) -> torch.Tensor:
+    """The shared transformer block at one site: attention (over the
+    site's KV cache, or causal over the fresh segment without one), then
+    the MLP, each with its residual."""
     h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
     a, _ = L.attention(sp["attn"], h, cfg, positions=positions, cache=cache,
                        cache_index=cache_index)
@@ -141,7 +150,8 @@ def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
              cache_index: int) -> torch.Tensor:
     """The groups of Mamba layers, each followed by the shared block where
     the config has it, then the final norm; each layer's state and each
-    site's KV in ``cache`` are read and replaced in place."""
+    site's KV in ``cache`` are read and replaced in place (training, with
+    no cache: ``train_backbone``)."""
     lay = params["layers"]
     for g, (lo, hi) in enumerate(_group_bounds(cfg)):
         for i in range(lo, hi):
@@ -157,6 +167,44 @@ def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
                               cache=(cache["k"][g], cache["v"][g]),
                               cache_index=cache_index)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def train_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """``repro``'s ``backbone`` with ``state=None``: the Mamba layers from
+    a zero state, each under ``cfg.remat``, and the shared block at each
+    site on the fresh segment, recomputed whole unless ``cfg.remat`` is
+    ``"none"``."""
+    def mamba_layer(lp, h):
+        out, _ = S.mamba_forward(lp["mamba"],
+                                 L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
+        return h + out
+
+    def shared(sp, h):
+        return _shared_block(cfg, sp, h, positions=positions)
+
+    layer = remat(cfg, mamba_layer)
+    block = remat(cfg, shared, "none" if cfg.remat == "none" else "full")
+    lps = layer_slices(params["layers"], cfg.num_layers)
+    for lo, hi in _group_bounds(cfg):
+        for i in range(lo, hi):
+            x = layer(lps[i], x)
+        if cfg.shared_attn_every > 0:
+            x = block(params["shared"], x)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def train_loss(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (``repro``'s ``train_loss``): embed, the backbone
+    without a cache, ``layers.chunked_ce_loss``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device).expand(
+        x.shape[:2])
+    h = train_backbone(params, x, cfg, positions=positions)
+    return L.chunked_ce_loss(params["embed"], h, labels, cfg)
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor, cache: Dict,

@@ -129,11 +129,17 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_index=None, chunk: bool = False, causal: bool = True,
-              use_rope: bool = True) -> Tuple[torch.Tensor, Optional[Tuple]]:
+              use_rope: bool = True, kv_x: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """GQA attention with QKV bias.  Returns (out, cache).
 
     ``causal=False, use_rope=False`` is the encoder-decoder's encoder
-    (no cache: K5 without a mask).
+    (no cache: K5 without a mask).  ``kv_x`` (B, Sk, d) takes the keys and
+    values from another sequence, roped at ``kv_positions`` (default
+    ``positions``), as ``repro``'s: the encoder-decoder's training cross
+    attention over the encoder output (no cache; K5 without a mask at Sq
+    over Sk, K5b under autograd).
 
     ``cache`` is a (k, v) pair of (B,S,Hkv,hd) tensors, written IN PLACE
     (``repro`` returns fresh arrays; the port saves the copy).
@@ -144,17 +150,19 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     attend over the whole cache under the absolute causal mask."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    src = x if kv_x is None else kv_x
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = src @ params["wk"]
+    v = src @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
+    k = k.reshape(b, src.shape[1], hkv, hd)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    v = v.reshape(b, s, hkv, hd)
+        k = rope(k, positions if kv_positions is None else kv_positions,
+                 cfg.rope_theta)
+    v = v.reshape(b, src.shape[1], hkv, hd)
     if cache is None:
         out = flash_attention(q, k, v, causal=causal)
     else:

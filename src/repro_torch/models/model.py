@@ -90,17 +90,12 @@ class Model:
     def train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``tokens`` and
-        ``labels`` (B, S); the VLM also ``image_embeds``), differentiable
-        in ``params`` (the dense, MoE, MLA and VLM families; attention on
-        ``FlashAttentionFn``).  The SSM, hybrid and encoder-decoder
-        families raise: their training needs a K6 backward and K5's
-        unmasked backward (ROADMAP queue 1, item 4)."""
-        if _module(self.cfg) is not transformer:
-            raise NotImplementedError(
-                f"train_loss of family {self.cfg.family!r} is not ported "
-                f"yet: it needs a K6 backward and K5's unmasked backward "
-                f"(ROADMAP queue 1, item 4)")
-        return transformer.train_loss(params, batch, self.cfg)
+        ``labels`` (B, S); the VLM also ``image_embeds``, the
+        encoder-decoder ``frames``), differentiable in ``params``, every
+        family as ``repro`` dispatches it: attention on
+        ``FlashAttentionFn`` (K5, K5b), Mamba-1's scan on ``SsmScanFn``
+        (K6, K6b)."""
+        return _module(self.cfg).train_loss(params, batch, self.cfg)
 
     # -- serving ---------------------------------------------------------------
     @property

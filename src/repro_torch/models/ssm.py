@@ -5,10 +5,14 @@ A Mamba-1 segment of several tokens (prefill) runs its selective scan in
 kernel K6 (the CUDA kernel on the card, its plain version on the CPU),
 which walks the whole sequence: the port takes any prompt length, where
 ``repro``'s chunked jnp scan keeps only whole ``ssm_chunk`` multiples.
-A one-token step (decode) stays plain torch, as in ``repro``.
+A one-token step (decode) stays plain torch, as in ``repro``.  In
+training (no state) the scan's gradient is K6b, the hand-written
+backward of ``SsmScanFn``, where ``repro`` runs ``jax.grad`` through its
+jnp scan.
 
 Mamba-2's SSD reaches no Pallas kernel in ``repro`` (it is jnp there),
-so the port's copy is plain torch too, with ``repro``'s f32 state: the
+so the port's copy is plain torch too (autograd differentiates it as it
+is: nothing in it writes in place), with ``repro``'s f32 state: the
 intra-chunk scores, the state's contribution and the new state are
 ``einsum`` products over chunks of ``ssm_chunk`` positions, one chunk at
 a time.  The last chunk may be shorter, so the port takes any prompt

@@ -19,29 +19,27 @@ installed mesh (``sharding.specs.mesh_context``), and ``layers.moe_block``
 where that returns None, as ``repro``'s layer does.
 
 Training (``train_loss``) walks the layers as the forward does, each layer
-under ``torch.utils.checkpoint`` where ``cfg.remat`` asks for it.  Each
-stacked leaf is split into its layers by one ``unbind``, whose backward
+under ``torch.utils.checkpoint`` where ``cfg.remat`` asks for it
+(``remat.remat``).  Each stacked leaf is split into its layers by one
+``unbind`` (``remat.layer_slices``), whose backward
 stacks the layers' gradients into one gradient of the stacked leaf (an
 indexing ``t[i]`` a layer would write a zero-filled gradient of the whole
 stack in every layer's backward).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..dht.data import Bf16Words
-from ..sharding import specs as sh
 from . import layers as L
 from . import moe_ep
+from .remat import layer_slices, remat
 
 Params = Dict[str, Any]
 
@@ -314,58 +312,6 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     return x + L.mlp(lp["mlp"], h, cfg)
 
 
-# the products whose outputs remat="dots" keeps: ``repro``'s
-# checkpoint_dots_with_no_batch_dims keeps the outputs of the dots without
-# batch dimensions, which are the 2-D products here (not the experts' bmm)
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
-        else CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat(cfg: ModelConfig, fn):
-    """``fn`` under ``cfg.remat``: ``"none"`` as it is, ``"full"``
-    recomputed in the backward from its inputs, ``"dots"`` recomputed
-    but for the matrix products' outputs.  Outside autograd it runs as
-    it is.  The recomputation runs under the forward's mesh and rules
-    (``specs.snapshot``): on the card the backward runs in the autograd
-    engine's own thread, which does not see the caller's thread-local
-    mesh."""
-    if cfg.remat not in ("none", "dots", "full"):
-        raise ValueError(f"remat={cfg.remat!r}: takes none, dots or full")
-    if cfg.remat == "none":
-        return fn
-
-    def wrapped(*args):
-        if not torch.is_grad_enabled():
-            return fn(*args)
-        state = sh.snapshot()
-
-        def contexts():
-            fwd, rec = create_selective_checkpoint_contexts(_save_dots) \
-                if cfg.remat == "dots" else (contextlib.nullcontext(),
-                                             contextlib.nullcontext())
-            return fwd, _both(rec, sh.installed(state))
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False, context_fn=contexts)
-    return wrapped
-
-
-@contextlib.contextmanager
-def _both(first, second):
-    with first, second:
-        yield
-
-
-def _layer_slices(params: Params, n: int):
-    """The ``n`` per-layer trees of the stacked leaves, one ``unbind`` a
-    leaf."""
-    split = _map(lambda t: t.unbind(0), params["layers"])
-    return [_map(lambda ts, i=i: ts[i], split) for i in range(n)]
-
-
 def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
              positions: torch.Tensor) -> torch.Tensor:
     """Embedded input (B, S, d) -> final hidden states, no cache
@@ -375,8 +321,8 @@ def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         return _layer_body(cfg, lp, h, positions=positions, cache=None,
                            cache_index=None, chunk=False)
 
-    layer = _remat(cfg, body)
-    for lp in _layer_slices(params, cfg.num_layers):
+    layer = remat(cfg, body)
+    for lp in layer_slices(params["layers"], cfg.num_layers):
         x = layer(lp, x)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 

@@ -8,6 +8,8 @@ runs on a machine that has only torch:
 The unmarked tests run everywhere: entry points refuse to fall back to
 the CPU on their own, and the kernel launchers refuse non-CUDA tensors.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -510,6 +512,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     monkeypatch.setattr(et_ops, "tree_math", refuse)
     monkeypatch.setattr(fa_ops, "flash_attention_ref", refuse)
     monkeypatch.setattr(ssm_ops, "ssm_scan_ref", refuse)
+    monkeypatch.setattr(ssm_ops, "ssm_scan_bwd_ref", refuse)
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd_ref", refuse)
+    monkeypatch.setattr(fa_ops, "flash_attention_bwd_ref", refuse)
     ids, keys = _ring(3000, seed=2)
     state = RingState(ids, device=cuda)
     want = ids[np.searchsorted(ids, keys) % ids.size]
@@ -530,6 +535,14 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     bc = torch.randn((1, 5, 4), device=cuda)
     ssm_ops.ssm_scan(x, x.abs(), bc, bc, -torch.ones((8, 4), device=cuda),
                      torch.ones(8, device=cuda))
+    # the training path: K5 with lse and K5b, K6 and K6b under autograd
+    leaves = [t.clone().requires_grad_() for t in (x, x.abs(), bc)]
+    y, _ = ssm_ops.ssm_scan(leaves[0], leaves[1], leaves[2], bc,
+                            -torch.ones((8, 4), device=cuda),
+                            torch.ones(8, device=cuda))
+    qk = torch.randn((1, 8, 2, 64), device=cuda).requires_grad_()
+    a = fa_ops.FlashAttentionFn.apply(qk, qk, qk, True)
+    torch.autograd.grad(y.sum() + a.sum(), leaves + [qk])
 
 
 # K5 tolerances: repro's own (tests/test_kernels.py), kernel and plain
@@ -714,7 +727,7 @@ def test_flash_attention_backward_kernel_equals_plain(cuda, dtype, b, sq, sk,
 def test_flash_attention_backward_refuses_before_a_launch(cuda):
     fn = fa_ops.flash_attention
     before = fn.bwd_launches
-    for hd, hdv, dtype in ((112, 112, torch.bfloat16), (16, 16, torch.bfloat16),
+    for hd, hdv, dtype in ((112, 112, torch.float32), (16, 16, torch.bfloat16),
                            (32, 32, torch.float32), (192, 128, torch.float32)):
         q = torch.randn((1, 8, 2, hd), device=cuda).to(dtype)
         v = torch.randn((1, 8, 2, hdv), device=cuda).to(dtype)
@@ -729,6 +742,40 @@ def test_flash_attention_backward_refuses_before_a_launch(cuda):
         fa_kernel.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(
             (1, 2, 8), device=cuda), q, causal=True)
     assert fn.bwd_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal", [
+    (1, 300, 300, 8, 8, 112, True),     # zamba2's shared block, ragged
+    (2, 200, 200, 4, 2, 112, False),    # hd 112 unmasked, g 2
+    (2, 1500, 1500, 4, 4, 64, False),   # whisper's encoder: a 28-row last tile
+    (2, 448, 1500, 4, 4, 64, False),    # whisper's cross attention
+])
+def test_flash_attention_backward_at_the_hybrid_and_encdec_shapes(
+        cuda, dtype, b, sq, sk, h, hkv, hd, causal):
+    """K5b on the tensor cores at hd 112 (the hd-128 tiles, columns
+    112-127 zero-filled and never stored) and unmasked at whisper's Sk =
+    1500 (not a multiple of 64) over Sq = 1500 and 448: within K5B_TOL of
+    the plain version, two calls bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + hd)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, sq, h, hd), (b, sk, hkv, hd),
+                             (b, sk, hkv, hd), (b, sq, h, hd)))
+    assert fa_kernel.bwd_route(dtype, hd) == "tc"
+    o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                            with_lse=True)
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                             causal=causal)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        err = float((x.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= K5B_TOL[dtype], err
+    again = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -863,6 +910,134 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
     wide = _scan_inputs(1, 8, 16, 33, torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="N <= 32"):
         ssm_ops.ssm_scan(*wide[:6])
+
+
+# K6b against its plain version, by the gradient's dtype: each f32
+# gradient (all of them from f32 inputs; ddt, dA and dh0 from bf16 ones)
+# within 1e-4 of its max |ref| (the scan's sums in another order,
+# ex2.approx), each bf16 one (dx, dB, dC, dD from bf16 inputs, rounded
+# once to bf16) within 1e-2
+K6B_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0,with_dh", [(True, True), (False, False),
+                                             (True, False), (False, True)])
+@pytest.mark.parametrize("bb,l,din,n", [
+    (2, 200, 100, 16),          # ragged tiles and channel blocks
+    (1, 1, 33, 32),             # one position, one channel past a block
+    (3, 129, 300, 5),           # N not a power of two, off the state flush
+    (1, 1024, 512, 16),         # falcon-mamba-7b's training length
+])
+def test_ssm_scan_backward_kernel_equals_plain(cuda, dtype, with_h0, with_dh,
+                                               bb, l, din, n):
+    x, dt, B, C, A, D, h0 = _scan_inputs(bb, l, din, n, dtype, cuda,
+                                         seed=l * din + n)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    dy = torch.randn((bb, l, din), generator=g, device=cuda).to(dtype)
+    dh = torch.randn((bb, din, n), generator=g, device=cuda) \
+        if with_dh else None
+    h0 = h0 if with_h0 else None
+    leaves = [t.clone().requires_grad_() for t in (x, dt, B, C, A, D)] \
+        + ([h0.clone().requires_grad_()] if with_h0 else [])
+    fn = ssm_ops.ssm_scan
+    before = (fn.launches, fn.bwd_launches)
+    y, h = fn(*leaves[:6], leaves[6] if with_h0 else None)
+    out = (y.float() * dy.float()).sum() + ((h * dh).sum() if with_dh else 0)
+    got = torch.autograd.grad(out, leaves)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = ssm_ref.ssm_scan_bwd_ref(x, dt, B, C, A, D, h0, dy, dh)
+    for name, x_, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD", "dh0"),
+                           got, want):
+        assert x_.dtype == w.dtype and x_.shape == w.shape, name
+        err = float((x_.float() - w.float()).abs().max()
+                    / max(float(w.float().abs().max()), 1e-30))
+        assert err <= K6B_TOL[w.dtype], (name, err)
+    again = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh)
+    first = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh)
+    assert all(a is None and c is None or torch.equal(a, c)
+               for a, c in zip(first, again))            # no atomics
+
+
+@pytest.mark.cuda
+def test_ssm_scan_backward_refuses_before_a_launch(cuda):
+    x, dt, B, C, A, D, h0 = _scan_inputs(1, 8, 16, 4, torch.bfloat16, cuda, 0)
+    dy = torch.zeros_like(x)
+    before = ssm_ops.ssm_scan.bwd_launches
+    with pytest.raises(ValueError, match="dy"):
+        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy.float(), None)
+    with pytest.raises(ValueError, match="dh_last"):
+        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy,
+                                     torch.zeros((1, 16, 5), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0.bfloat16(), dy,
+                                     None)
+    wide = _scan_inputs(1, 8, 16, 33, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="N <= 32"):
+        ssm_kernel.ssm_scan_bwd_cuda(*wide, torch.zeros((1, 8, 16),
+                                                        device=cuda), None)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_kernel.ssm_scan_bwd_cuda(*(t.cpu() for t in (x, dt, B, C, A, D,
+                                                         h0)), dy.cpu(), None)
+    assert ssm_ops.ssm_scan.bwd_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
+                                  "whisper-small"])
+def test_family_train_step_on_the_card_matches_the_plain_versions(cuda, arch):
+    """A family's ``smoke()`` in f32 (one attention head of hd 64, which
+    the f32 K5b takes): ``train_loss`` and every gradient on the card
+    (K5, K5b, K6, K6b on the SIMT f32 routes) against the CPU's plain
+    versions, loss within 1e-5 and each leaf within 1e-4 of its max |g|;
+    then one ``make_train_step`` step on the card, finite, with the
+    kernels' launches a step."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.step import _value_and_grad
+    over = dict(dtype="float32", remat="full")
+    if arch != "falcon-mamba-7b":
+        over.update(num_heads=1, num_kv_heads=1)
+    cfg = get_smoke_config(arch).with_overrides(**over)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 32), dtype=np.int32),
+             "labels": rng.integers(0, cfg.vocab, (2, 32), dtype=np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.audio_frames, cfg.d_model)).astype(np.float32)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    card_batch = {k: v.to(cuda) for k, v in cpu_batch.items()}
+    on_card = _to(params, cuda)
+    loss_p, grads_p = _value_and_grad(model, params, cpu_batch)
+    loss_k, grads_k = _value_and_grad(model, on_card, card_batch)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5
+    for gk, gp in zip(adamw.leaves(grads_k), adamw.leaves(grads_p)):
+        scale = max(float(gp.abs().max()), 1e-30)
+        assert float((gk.cpu() - gp).abs().max()) <= 1e-4 * scale
+    fa, sc = fa_ops.flash_attention, ssm_ops.ssm_scan
+    before = (fa.launches, fa.bwd_launches, sc.launches, sc.bwd_launches)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(model, TrainConfig(opt=opt))
+    on_card, state, met = step(on_card, adamw.init_state(on_card, opt),
+                               card_batch)
+    torch.cuda.synchronize()
+    after = (fa.launches, fa.bwd_launches, sc.launches, sc.bwd_launches)
+    n = cfg.num_layers
+    if arch == "falcon-mamba-7b":      # the scan, again in the recompute
+        want = (0, 0, 2 * n, n)
+    elif arch == "zamba2-7b":          # Mamba-2 is plain torch; the sites
+        sites = -(-n // cfg.shared_attn_every)
+        want = (2 * sites, sites, 0, 0)
+    else:                              # encoder, self and cross attention
+        calls = cfg.encoder_layers + 2 * n
+        want = (2 * calls, calls, 0, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert math.isfinite(float(met["loss"]))
+    assert all(bool(torch.isfinite(t).all()) for t in adamw.leaves(on_card))
 
 
 @pytest.mark.cuda

@@ -125,14 +125,15 @@ def test_layers_flash_attention_records_a_gradient_only_under_autograd():
 
 def test_bwd_route_and_refusals():
     for dt in (torch.bfloat16, torch.float16):
-        for hd in (64, 128):
+        for hd in (64, 112, 128):        # 112: zamba2, on the hd-128 tiles
             assert fa_kernel.bwd_route(dt, hd) == "tc"
             assert fa_kernel.bwd_route(dt, hd, hd) == "tc"
         assert fa_kernel.bwd_route(dt, 192, 128) == "tc"    # MLA
     assert fa_kernel.bwd_route(torch.float32, 128) == "simt"
     assert fa_kernel.bwd_route(torch.float32, 64, 64) == "simt"
-    # f32 has no MLA backward: the SIMT kernels take hd 64 and 128 only
-    for dt, dqk, dv in ((torch.bfloat16, 112, 112), (torch.bfloat16, 16, 16),
+    # f32 has no MLA or hd 112 backward: the SIMT kernels take hd 64 and
+    # 128 only
+    for dt, dqk, dv in ((torch.float32, 112, 112), (torch.bfloat16, 16, 16),
                         (torch.float32, 192, 128), (torch.float32, 16, 16),
                         (torch.float16, 32, 32), (torch.bfloat16, 128, 192),
                         (torch.int8, 64, 64)):

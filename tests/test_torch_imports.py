@@ -53,7 +53,8 @@ NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.launch.inputs", "repro_torch.optim.adamw",
                "repro_torch.runtime.failover", "repro_torch.train.step",
                "repro_torch.train.trainer", "repro_torch.train_lm",
-               "repro_torch.models.moe_ep", "repro_torch.sharding.collectives")
+               "repro_torch.models.moe_ep", "repro_torch.sharding.collectives",
+               "repro_torch.models.remat")
 
 
 def _env(**extra):

@@ -8,7 +8,8 @@ repro's weights converted and the same numpy batches fed to both:
 * one ``make_train_step`` step (params, m, v, step, grad_norm, lr, loss)
   against repro's, with microbatches 1 and 2 and with int8 compression;
 * ``adamw.schedule`` at warm-up, mid-decay and the end; the remat modes
-  giving one loss and one gradient; the families not ported raising;
+  giving one loss and one gradient (the SSM, hybrid and encoder-decoder
+  families: ``test_torch_train_families.py``);
 * ``SyntheticLM`` and ``dummy_batch`` batches equal to repro's.
 
 Tolerances: loss 1e-5 absolute (a mean of O(5) f32 terms); each gradient
@@ -241,14 +242,6 @@ def test_optimizer_state_matches_repros_tree():
     np.testing.assert_allclose(
         float(adamw.global_norm(p)),
         float(jadamw.global_norm(jp)), rtol=1e-6)
-
-
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
-                                  "whisper-small"])
-def test_families_not_ported_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg).train_loss({}, {})
 
 
 def test_int8_experts_take_no_gradient():
