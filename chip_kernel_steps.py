@@ -91,13 +91,27 @@ layer's cache is cold:
             ``csrc/flash_attention_bwd.cu``), with the number of functions
             in which ptxas serialized the wgmmas (its C7515 note);
   k6b       K6b (``ssm_scan_bwd_cuda``, bf16 x/B/C/D/dy, f32 dt/A, no h0
-            or dh_last) at falcon-mamba-7b's training shape (B 8, L 1024,
-            Din 8192, N 16) and at B 1: the device ms of its scan kernel
-            and of its sums across blocks, and in all, the CUDA-event ms,
-            K6's forward at the same shape beside it, the bound and the
-            SFU's floor (``chip_smoke.k6b_bound``, ``sfu_ms``), and the
-            error against the plain version (B 1 only: the plain version
-            walks every position in turn).
+            or dh_last; the second design fed K6's tile start states) at
+            falcon-mamba-7b's training shape (B 8, L 1024, Din 8192, N 16)
+            and at B 1: the device ms of its scan kernel and of its sums
+            across blocks (clusters), and in all, the CUDA-event ms, K6's
+            forward at the same shape beside it (with and without the
+            states), the bound and the SFU's floor (``chip_smoke.k6b_bound``,
+            ``sfu_ms``), and at B 1 the error against the plain version
+            (the plain version walks every position in turn); then each
+            timing variant of the tree's design (``K6B_STEPS``: patched
+            copies of ``csrc/ssm_scan_bwd.cu``, built in parallel; the PR
+            27 design's cuts: no pass 1, pass 1 without its exponential,
+            no dB / dC flush, no channel join; the second design's cuts and
+            shapes: no loads after the first tile, no block sums, no
+            cluster sums, no B / C loads, no exponentials, no scans, no
+            channel join, no per-group barrier, and one state or four at
+            once, two blocks an SM, 48 channels a block, a channel's
+            segments on neighbouring lanes), each with its error at B 1
+            (only the
+            kernel is gated); first the launch's occupancy, registers and
+            ptxas report (a probe built into the kernel's own translation
+            unit).
 
 The phases read which design the checkout holds from its sources, so the
 script also measures a parent's kernels when copied into its tree.
@@ -1129,36 +1143,180 @@ def k5b(dev, gen):
         torch.cuda.empty_cache()
 
 
+# timing variants of each design of csrc/ssm_scan_bwd.cu (patched copies,
+# timing only: their gradients are not gated), and a probe of the scan
+# kernel's launch appended to its own translation unit: out = (blocks an
+# SM, registers, dynamic smem bytes, threads a block, channels a block,
+# positions a tile, local-memory bytes, blocks a cluster)
+K6B_STEPS = {
+    # the first design: pass 1 the tiles' start states, pass 2 the reverse scan; dB /
+    # dC through per-block partials.  The cuts: no pass 1 (pass 2 starts
+    # from whatever the scratch holds), pass 1 without its exponential
+    # (the second a state), no dB / dC flush (no block sums, partial
+    # writes or their two barriers), no channel join (no butterfly)
+    "two_pass": ({
+        "no_pass1": {"  for (int tile = 0; tile < tiles; ++tile) {":
+                     "  for (int tile = 0; tile < 0; ++tile) {"},
+        "no_second_exp": {
+            "          H = fmaf(decay(dtv[i] * a2), H, dtx[i] * bs[k]);":
+            "          H = fmaf(dtv[i] * a2, H, dtx[i] * bs[k]);"},
+        "no_flush": {
+            "      __syncthreads();\n      // the block's dB and dC of these "
+            "states: the warps' sums in order\n      const int ns = "
+            "min(kRedStates, N - n0);": "      const int ns = 0;",
+            "        part_c[at] = sc;\n      }\n      __syncthreads();\n":
+            "        part_c[at] = sc;\n      }\n"},
+        "no_join": {"        join_channels(db, ob, lane);\n"
+                    "        join_channels(dc, oc, lane);":
+                    "        ob[0] = db[0], ob[1] = db[1], oc[0] = dc[0], "
+                    "oc[1] = dc[1];"},
+    }, r"""
+extern "C" int steps_probe(int n, int din, int* out) {
+  const int smem = static_cast<int>(smem_bytes(n));
+  cudaFuncAttributes attr;
+  cudaError_t e = prepare<__nv_bfloat16>(smem);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, ssm_scan_bwd_kernel<__nv_bfloat16>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], ssm_scan_bwd_kernel<__nv_bfloat16>, kThreads, smem);
+  out[1] = attr.numRegs; out[2] = smem; out[3] = kThreads; out[4] = kChannels;
+  out[5] = kTile; out[6] = static_cast<int>(attr.localSizeBytes); out[7] = 1;
+  return static_cast<int>(e);
+}
+"""),
+    # the second design: tiles started from K6's states, one exponential a (position,
+    # channel, state), 16-position segments, the next tile's loads during
+    # this one, dB / dC summed in clusters of 8 blocks.  The cuts: no
+    # loads after the first tile, no block sums of the warps' dB / dC, no
+    # sums across the cluster (no distributed shared memory reads)
+    "tile_states": ({
+        "no_loads": {"      if (tile > 0) fetch(tile - 1);":
+                     "      if (false) fetch(tile - 1);"},
+        "no_block_sums": {"          if (tt < rows && n0 + g < N) {":
+                          "          if (false) {"},
+        "no_cluster_sums": {
+            "    for (int e = tid; e < 2 * kSlice * N; e += kThreads) {":
+            "    for (int e = tid; e < 0; e += kThreads) {"},
+        "no_bc_loads": {"          const float4 v = src[g][c][q4];":
+                        "          const float4 v = make_float4(float(g), float(c), "
+                        "float(q4), 1.f);"},
+        "segment_lanes": {"constexpr int kSegLane = 4; ": "constexpr int kSegLane = 1; ",
+                          "constexpr int kChLane = 1; ": "constexpr int kChLane = 8; "},
+        "no_exp": {'  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
+                   "  y = 1.0f + x;"},
+        "no_scans": {
+            "            const float Pp = __shfl_up_sync(0xffffffffu, Pc[g], dd * kSegLane);":
+            "            const float Pp = 1.f;",
+            "            const float Hp = __shfl_up_sync(0xffffffffu, H[g], dd * kSegLane);":
+            "            const float Hp = 0.f;",
+            "            const float Pn = __shfl_down_sync(0xffffffffu, Pc[g], dd * kSegLane);":
+            "            const float Pn = 1.f;",
+            "            const float Qn = __shfl_down_sync(0xffffffffu, Q[g], dd * kSegLane);":
+            "            const float Qn = 0.f;"},
+        "no_join": {"__shfl_xor_sync(0xffffffffu, gb[1], kChLane)": "gb[1]",
+                    "__shfl_xor_sync(0xffffffffu, gc[1], kChLane)": "gc[1]",
+                    "__shfl_xor_sync(0xffffffffu, sb, 2 * kChLane)": "sb",
+                    "__shfl_xor_sync(0xffffffffu, sc, 2 * kChLane)": "sc"},
+        "state_barrier_cut": {
+            "        __syncthreads();\n        if (pending) {":
+            "        if (pending) {"},
+        # other shapes of the design: one state at a time, four, two
+        # blocks an SM (registers capped at 128), 48 channels a block
+        "group1": {"constexpr int kGroup = 2;": "constexpr int kGroup = 1;"},
+        "group4": {"constexpr int kGroup = 2;": "constexpr int kGroup = 4;"},
+        "two_blocks_group1": {"constexpr int kMinBlocks = 1;":
+                              "constexpr int kMinBlocks = 2;",
+                              "constexpr int kGroup = 2;":
+                              "constexpr int kGroup = 1;"},
+        "ch48_group1": {"constexpr int kChannels = 32;":
+                        "constexpr int kChannels = 48;",
+                        "constexpr int kGroup = 2;": "constexpr int kGroup = 1;"},
+    }, r"""
+extern "C" int steps_probe(int n, int din, int* out) {
+  int occ[6];
+  const int e = occupancy<__nv_bfloat16>(n, occ);
+  out[0] = occ[0]; out[1] = occ[2]; out[2] = occ[4]; out[3] = occ[5];
+  out[4] = kChannels; out[5] = kTile; out[6] = occ[3]; out[7] = kCluster;
+  return e;
+}
+"""),
+}
+
+
 def k6b(dev, gen):
     """K6b at falcon-mamba-7b's training shape and at B 1: its kernels'
-    device time, K6's beside it, the bound and the SFU's floor."""
+    device time, K6's beside it, the bound and the SFU's floor; then, at
+    the training shape, each timing variant of its design by device time
+    (variants are not gated); the launch's occupancy first."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    src = build.CSRC / "ssm_scan_bwd.cu"
+    which = design(src, "map_shared_rank", "tile_states", "two_pass")
+    swaps, probe_src = K6B_STEPS[which]
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=8) as pool:   # one nvcc a variant
+        built = {name: pool.submit(variant_library, f"k6b_{which}_{name}",
+                                   src, sw) for name, sw in swaps.items()}
+        built["kernel"] = pool.submit(variant_library, f"k6b_{which}", src,
+                                      extra=probe_src)
+    libs = {"kernel": built.pop("kernel").result()}
+    for name, f in built.items():        # a variant that does not build: say so
+        try:
+            libs[name] = f.result()
+        except subprocess.CalledProcessError as e:
+            emit({"phase": "k6b_variant", "variant": name,
+                  "build_error": (e.stdout or "")[-2000:] + (e.stderr or "")[-2000:]})
     _, l, din, n = smoke.K6B_SHAPE
+    occ = probe(libs["kernel"], n, din)
+    emit({"phase": "k6b_launch", "design": which, "blocks_per_sm": occ[0],
+          "warps_per_sm": occ[0] * occ[3] // 32, "registers": occ[1],
+          "smem_bytes": occ[2], "threads": occ[3],
+          "channels_per_block": occ[4], "tile_positions": occ[5],
+          "local_bytes": occ[6], "cluster_blocks": occ[7],
+          "ptxas": [ln.strip() for ln in libs["kernel"].build_log.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]})
     for bb in (smoke.K6B_SHAPE[0], 1):
         x, dt, B, C, A, D, _ = smoke.k6_random_inputs(dev, gen,
                                                       (bb, l, din, n))
         x, B, C, D = (t.bfloat16() for t in (x, B, C, D))
         dy = torch.randn((bb, l, din), generator=gen, device=dev).bfloat16()
         args = (x, dt, B, C, A, D, None, dy, None)
-        fn = lambda i: sk.ssm_scan_bwd_cuda(*args)  # noqa: E731
-        split = {k: float(np.median(v)) for k, v in _by_kernel(fn).items()}
+        if which == "tile_states":
+            states = sk.ssm_scan_cuda(*args[:7], states=True)[2]
+            fn = lambda i: sk.ssm_scan_bwd_cuda(*args, states)  # noqa: E731
+        else:
+            fn = lambda i: sk.ssm_scan_bwd_cuda(*args)  # noqa: E731
         b6b, by6b = smoke.k6b_bound(*args)
-        row = {"shape": [bb, l, din, n], "ms": smoke.cuda_ms(fn, iters=10),
-               "device_ms": sum(split.values()), "device_ms_by_kernel": split,
+        row = {"shape": [bb, l, din, n], "design": which,
                "k6_forward_device_ms": device_ms(
                    lambda i: sk.ssm_scan_cuda(*args[:7])),
                "bound_ms": b6b, "bound_by": by6b,
                "sfu_ms": smoke.sfu_ms(bb * l * din * n)}
-        if bb == 1:
-            got = sk.ssm_scan_bwd_cuda(*args)
-            want = ssm_scan_bwd_ref(*args)
-            row["max_rel_err"] = max(smoke.rel_err(g, w)
-                                     for g, w in zip(got, want)
-                                     if w is not None)
+        if which == "tile_states":
+            row["k6_forward_with_states_device_ms"] = device_ms(
+                lambda i: sk.ssm_scan_cuda(*args[:7], states=True))
+        want = ssm_scan_bwd_ref(*args) if bb == 1 else None
+        for name, lib in libs.items():
+            with routed_to(lib):
+                split = {k: float(np.median(v))
+                         for k, v in _by_kernel(fn).items()}
+                out = {"device_ms": sum(split.values()),
+                       "device_ms_by_kernel": split}
+                if name == "kernel":
+                    out["ms"] = smoke.cuda_ms(fn, iters=10)
+                if want is not None:
+                    got = fn(0)
+                    out["max_rel_err"] = max(smoke.rel_err(g, w)
+                                             for g, w in zip(got, want)
+                                             if w is not None)
+                    del got
+            row[name] = out
         emit({"phase": "k6b", **row})
-        del x, dt, B, C, A, D, dy, args
+        del x, dt, B, C, A, D, dy, args, want
         torch.cuda.empty_cache()
 
 

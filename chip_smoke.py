@@ -31,12 +31,16 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            ``kernel.bwd_route``; timed in turns with SDPA's backward pinned
            to its fastest backend; the bound is its five products over the
            pairs the mask lets through), K6 (ssm_scan at a
-           falcon-mamba-7b admit's shape on random f32 inputs) and K6b
-           (ssm_scan_bwd, csrc/ssm_scan_bwd.cu, at falcon-mamba-7b's
-           training shape, B 8, L 1024, Din 8192, N 16, x/B/C/D/dy in bf16,
-           without and with h0 and dh_last: each gradient within 1e-2 of
-           its max |ref|, two calls bit-equal; its bound from the bytes and
-           the SFU's exponentials) at the main
+           falcon-mamba-7b admit's shape on random f32 inputs; and asked
+           for its tile start states: y and h_last bit-equal to the call
+           without, the states within 1e-5 of max |h| of the plain
+           scan's) and K6b (ssm_scan_bwd, csrc/ssm_scan_bwd.cu, at
+           falcon-mamba-7b's training shape, B 8, L 1024, Din 8192, N 16,
+           x/B/C/D/dy in bf16, fed K6's tile start states, without and
+           with h0 and dh_last: each gradient within 1e-2 of its max |ref|,
+           two calls bit-equal; its bound from the bytes and the SFU's
+           exponentials; the scan kernel's registers, spills and resident
+           warps, the bytes of its dB / dC partials) at the main
            path's shapes, each held against its plain PyTorch version on
            the same inputs (K1/K2 exactly, also K2 at the fused round's 32
            keys; K3 within 1.6e-2 in bf16 and fp16 on the tensor-core route
@@ -290,6 +294,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -463,6 +468,7 @@ COLLECTIVE_VALUES = 1 << 24
 K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
 K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
 K6_Y_REL = 1e-2                    # bf16 y: of max |y|
+K6_STATES_REL = 1e-5               # K6's tile start states: of max |h|
 # f32 operations K6 does per (position, channel, state): dt*A, exp, da*h,
 # (dt*x)*B, +, h*C, the reduction's add; and per (position, channel):
 # dt*x, D*x, +
@@ -2246,20 +2252,33 @@ def k6_random_inputs(dev, gen, shape=K6_SHAPE):
 def k6_check(dev, x, dt, B, C, A, D, h0=None) -> dict:
     """K6 against its plain version on these inputs: h_last within
     K6_ATOL; y within K6_ATOL in f32, within K6_Y_REL of max |y| in a
-    narrower type.  Times, and the bound from these inputs."""
+    narrower type.  Then K6 asked for its tile start states (as training
+    asks): y and h_last bit-equal to the call without, the states within
+    K6_STATES_REL of max |h| of the plain scan's.  Times (with and
+    without the states), and the bound from these inputs."""
     import torch
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     y, h = ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)
+    y2, h2, hs = ssm_kernel.ssm_scan_cuda(x, dt, B, C, A, D, h0, states=True)
     torch.cuda.synchronize()
-    wy, wh = ssm_scan_ref(x, dt, B, C, A, D, h0)
+    wy, wh, whs = ssm_scan_ref(x, dt, B, C, A, D, h0,
+                               state_tile=ssm_kernel.STATE_TILE)
     err_y = float((y.float() - wy.float()).abs().max())
     err_h = float((h - wh).abs().max())
     y_max = float(wy.float().abs().max())
     y_tol = K6_ATOL if x.dtype == torch.float32 else K6_Y_REL * y_max
+    states_equal = torch.equal(y, y2) and torch.equal(h, h2)
+    states_err = rel_err(hs, whs)
+    del y2, h2, hs, whs
     if not (err_h <= K6_ATOL and err_y <= y_tol):
         raise AssertionError(f"K6 ({x.dtype}): y err {err_y} (tol {y_tol}), "
                              f"h err {err_h}")
+    if not (states_equal and states_err <= K6_STATES_REL):
+        raise AssertionError(f"K6 with tile states ({x.dtype}): y and h_last "
+                             f"bit-equal {states_equal}, states rel err "
+                             f"{states_err}")
     bb, l, din = x.shape
     n = A.shape[1]
     b6, by6 = k6_bound(x, dt, B, C, A, D, h0)
@@ -2267,8 +2286,12 @@ def k6_check(dev, x, dt, B, C, A, D, h0=None) -> dict:
             "max_abs_err": max(err_y, err_h), "y_max_abs_err": err_y,
             "h_max_abs_err": err_h, "y_tolerance": y_tol,
             "h_tolerance": K6_ATOL, "y_max_abs": y_max,
+            "with_states_bit_equal": states_equal,
+            "states_rel_err": states_err, "states_tolerance": K6_STATES_REL,
             "exponentials": bb * l * din * n,
             "ms": cuda_ms(lambda i: ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)),
+            "ms_with_states": cuda_ms(lambda i: ssm_kernel.ssm_scan_cuda(
+                x, dt, B, C, A, D, h0, states=True)),
             "plain_ms": cuda_ms(lambda i: ssm_scan_ref(x, dt, B, C, A, D, h0),
                                 iters=3, warmup=1),
             "library_ms": None, "bound_ms": b6, "bound_by": by6,
@@ -2300,14 +2323,38 @@ def sfu_ms(exponentials: int) -> float:
     return exponentials / (sms * SFU_PER_CLOCK * mhz * 1e6) * 1e3
 
 
+def ptxas_of(log: str, kernel: str) -> list:
+    """ptxas' -v report of each instantiation of ``kernel`` in a build
+    log: [{"function", "registers", "spill_stores", "spill_loads"}]."""
+    rows, cur, spill = [], None, (None, None)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if cur and m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if cur and m:
+            rows.append({"function": cur, "registers": int(m.group(1)),
+                         "spill_stores": spill[0], "spill_loads": spill[1]})
+            cur = None
+    return rows
+
+
 def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
     """K6b (``ssm_scan_bwd_cuda``) against its plain version at ``shape``
     on K6's random distributions, x, B, C, D and dy in bf16: without h0
-    and dh_last (training's case) and with both.  Each gradient within its
+    and dh_last (training's case) and with both, each fed the tile start
+    states K6 writes on the same inputs.  Each gradient within its
     K6B_REL of its max |ref|, a second call bit-equal to the first; times,
-    the bound from these inputs and the SFU's floor.  Returns K6b's row
-    (the case without a state; the other under ``with_state``)."""
+    the bound from these inputs and the SFU's floor; the scan kernel's
+    registers, spills and residency, and the bytes of its dB / dC
+    partials.  Returns K6b's row (the case without a state; the other
+    under ``with_state``)."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
     bb, l, din, n = shape
@@ -2320,8 +2367,9 @@ def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
     for key, state in (("no_state", False), ("with_state", True)):
         args = (x, dt, B, C, A, D, h0 if state else None, dy,
                 dh if state else None)
-        got = ssm_kernel.ssm_scan_bwd_cuda(*args)
-        again = ssm_kernel.ssm_scan_bwd_cuda(*args)
+        hs = ssm_kernel.ssm_scan_cuda(*args[:7], states=True)[2]
+        got = ssm_kernel.ssm_scan_bwd_cuda(*args, hs)
+        again = ssm_kernel.ssm_scan_bwd_cuda(*args, hs)
         torch.cuda.synchronize()
         equal = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
         del again
@@ -2339,15 +2387,20 @@ def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
         cases[key] = {
             "max_abs_err": abs_err, "rel_err": errs,
             "max_rel_err": max(errs.values()), "bit_equal": equal,
-            "ms": cuda_ms(lambda i: ssm_kernel.ssm_scan_bwd_cuda(*args),
+            "ms": cuda_ms(lambda i: ssm_kernel.ssm_scan_bwd_cuda(*args, hs),
                           iters=10),
             "plain_ms": cuda_ms(lambda i: ssm_scan_bwd_ref(*args), iters=1,
                                 warmup=0),
             "library_ms": None, "bound_ms": b6b, "bound_by": by6b,
             "sfu_ms": sfu_ms(bb * l * din * n),
             "k6_forward_ms": cuda_ms(lambda i: ssm_kernel.ssm_scan_cuda(
-                *args[:7]), iters=10)}
+                *args[:7]), iters=10),
+            "k6_forward_with_states_ms": cuda_ms(
+                lambda i: ssm_kernel.ssm_scan_cuda(*args[:7], states=True),
+                iters=10)}
+        del hs
         torch.cuda.empty_cache()
+    clusters = -(-din // (ssm_kernel.BWD_CHANNELS * ssm_kernel.BWD_CLUSTER))
     return {"name": "ssm_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
             "replaces": "src/repro/models/ssm.py:164",
@@ -2357,6 +2410,10 @@ def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
             "tolerance": K6B_REL,
             "tolerance_of": "max_rel_err (max |d| / max |ref| per gradient)",
             **cases["no_state"],
+            "scan_kernel": {"ptxas": ptxas_of(build.build_log,
+                                              "ssm_scan_bwd_kernel"),
+                            **ssm_kernel.bwd_occupancy(n, torch.bfloat16)},
+            "partial_bytes": 2 * bb * clusters * l * n * 4,
             "with_state": {"shape": "the same, with h0 and dh_last",
                            **cases["with_state"]}}
 
@@ -3843,8 +3900,9 @@ def train_family_phase(dev, phase: str, spec) -> dict:
            "ms_per_step_median": step_s * 1e3,
            "tokens_per_s": tokens / step_s,
            "max_memory_allocated_gib": peak / 2**30,
-           "device_ms_per_step": dev_ms, "launches_per_step": first,
-           "launches": counts,
+           "device_ms_per_step": dev_ms,
+           "K6b_share_of_device": dev_ms["K6b"] / dev_ms["all"],
+           "launches_per_step": first, "launches": counts,
            "gate": {"layers": TRAIN_GATE_LAYERS,
                     "loss_kernels": float(loss_k),
                     "loss_plain": float(loss_p), "loss_rel": loss_rel,

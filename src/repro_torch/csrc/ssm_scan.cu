@@ -6,7 +6,12 @@
 //     y_t = h_t . C_t + D * x_t
 // with x, dt: (Bb, L, Din), B, C: (Bb, L, N), A: (Din, N), D: (Din,),
 // h0 and h_last: (Bb, Din, N) f32, y in x's dtype.  As in the TPU kernel
-// the state never goes to device memory: only y and h_last are written.
+// the state never goes to device memory: only y and h_last are written,
+// and, when the caller asks (training: the backward K6b starts each of
+// its tiles from them), the state at the start of each kTile-position
+// tile, hs: (Bb, tiles, N, Din) f32, the block's carry as the tile begins
+// (h0 for the first): one f32 a (tile, channel, state), ~34 MB at Bb 8,
+// L 1024, Din 8192, N 16.
 //
 // Bound on this card: at the path's shape (Bb 1, L 1024, Din 8192, N 16)
 // the bytes that must move (x and y in bf16, dt in f32, ~69 MB) take
@@ -156,8 +161,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                     const T* __restrict__ Bm, const T* __restrict__ Cm,
                     const float* __restrict__ A, const T* __restrict__ D,
                     const float* __restrict__ h0, T* __restrict__ y,
-                    float* __restrict__ h_last, int L, int Din, int N, int npad,
-                    bool async) {
+                    float* __restrict__ h_last, float* __restrict__ hs, int L, int Din,
+                    int N, int npad, bool async) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int stage_bytes = Stage<T>::bytes(N);
   float* b_s = reinterpret_cast<float*>(smem + kStages * stage_bytes);
@@ -248,6 +253,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       asm volatile("cp.async.wait_group 1;\n" ::);      // this tile has landed
     }
     __syncthreads();
+    if (hs != nullptr) {                     // the carry into this tile
+      float* ht = hs + (static_cast<size_t>(b) * ((L + kTile - 1) / kTile) + t0 / kTile) * N * Din;
+      for (int e = tid; e < kChannels * N; e += kThreads) {
+        const int n = e / kChannels;
+        const int cc = e - n * kChannels;
+        if (cc < live) ht[static_cast<size_t>(n) * Din + c0 + cc] = h_s[e];
+      }
+    }
     const unsigned char* xr = smem + st * stage_bytes;
     const unsigned char* dr = xr + Stage<T>::kXBytes;
     const T* br = reinterpret_cast<const T*>(dr + Stage<T>::kDtBytes);
@@ -372,8 +385,8 @@ cudaError_t prepare(int smem) {
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* Bm, const void* Cm, const void* A,
-           const void* D, const void* h0, void* y, void* h_last, int Bb, int L, int Din,
-           int N, cudaStream_t stream) {
+           const void* D, const void* h0, void* y, void* h_last, void* hs, int Bb, int L,
+           int Din, int N, cudaStream_t stream) {
   if (N < 1 || N > kMaxState || Bb < 1 || Bb > 65535 || L < 1 || Din < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(smem_bytes<T>(N));
@@ -389,27 +402,28 @@ int launch(const void* x, const void* dt, const void* Bm, const void* Cm, const 
   ssm_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const T*>(D),
-      static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(h_last), L,
-      Din, N, padded_states(N), async);
+      static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(h_last),
+      static_cast<float*>(hs), L, Din, N, padded_states(N), async);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, B, C, D and y alike);
-// dt, A, h0 and h_last are f32; h0 may be null (a zero state)
+// dt, A, h0, h_last and hs are f32; h0 may be null (a zero state), hs may
+// be null (no tile states written), else (Bb, ceil(L / kTile), N, Din)
 extern "C" int ssm_scan_launch(const void* x, const void* dt, const void* B, const void* C,
                                const void* A, const void* D, const void* h0, void* y,
-                               void* h_last, int Bb, int L, int Din, int N, int dtype,
-                               void* stream) {
+                               void* h_last, void* hs, int Bb, int L, int Din, int N,
+                               int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(x, dt, B, C, A, D, h0, y, h_last, Bb, L, Din, N, st);
+      return launch<float>(x, dt, B, C, A, D, h0, y, h_last, hs, Bb, L, Din, N, st);
     case 1:
-      return launch<__nv_bfloat16>(x, dt, B, C, A, D, h0, y, h_last, Bb, L, Din, N, st);
+      return launch<__nv_bfloat16>(x, dt, B, C, A, D, h0, y, h_last, hs, Bb, L, Din, N, st);
     case 2:
-      return launch<__half>(x, dt, B, C, A, D, h0, y, h_last, Bb, L, Din, N, st);
+      return launch<__half>(x, dt, B, C, A, D, h0, y, h_last, hs, Bb, L, Din, N, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,74 +19,112 @@
 // Din 8192, N 16) the bytes that must move (x, dy and dx in bf16, dt and
 // ddt in f32, B, C and their gradients: ~0.94 GB) take ~0.28 ms at
 // 3.35 TB/s, and the 1.07e9 exponentials, one a (position, channel,
-// state), ~0.29 ms on the SFUs.  The design, the first one that is right:
+// state), ~0.26 ms on the SFUs.  What the kernel issues is the nearer
+// limit: ~20 f32 operations a (position, channel, state) beside the
+// exponential (below), with the scans' and the channel join's shuffles
+// and the loads of B and C besides, ~1 ms at the SMs' issue rate.  The design
+// (the second; the first recomputed each tile's start state in a pass of
+// its own and took 3.40 ms):
 //   * the layout of K6: a block owns kChannels consecutive channels of one
-//     batch row; a thread owns one channel and kItems consecutive positions
-//     (a segment) of a kTile-position tile, and loops over the states; the
-//     kSegs segments of a channel are lanes of one warp;
-//   * pass 1 walks the tiles forward with K6's segment scan (each segment
-//     folded to a (product of decays, h from 0) pair, the pairs joined by a
-//     width-kSegs __shfl_up_sync scan) and writes each tile's start state
-//     to a scratch (Bb, tiles, N, Din) in device memory (67 MB at the shape
-//     above: a scratch in device memory takes any L);
-//   * pass 2 walks the tiles in reverse.  In each tile it recomputes the
-//     states from the tile's start state with the same scan, keeping
-//     h_{t-1} and a_t of its kItems positions in registers, then runs the
-//     adjoint as a reverse scan: with q_t = a_t g_t (what flows into
-//     h_{t-1}), q_t = a_t (C_t dy_t + q_{t+1}), so a segment folds to a
-//     (product of decays, q from 0) pair from its own decays alone, the
-//     pairs join by a width-kSegs __shfl_down_sync suffix scan, and the q
-//     carried into the tile before is the first segment's (dh_last into
-//     the last tile; dh0 = q_0 after the first);
-//   * dx and ddt accumulate over the states in registers and go out through
+//     batch row; a thread owns one channel and kItems = 16 consecutive
+//     positions (a segment) of a kTile-position tile, and loops over the
+//     states; the kSegs segments of a channel are lanes of one warp
+//     (kSegLane apart; a warp's four channels are neighbouring lanes);
+//   * the tiles' start states come from K6's forward, which writes the
+//     carry into each of its tiles when asked (hs: (Bb, tiles, N, Din),
+//     K6's tile and this one are the same kTile); the tiles are walked in
+//     reverse.  In each tile, kGroup states at a time, the segment's
+//     decays a_t = 2^(dt A log2 e) are taken once (one ex2.approx a
+//     position, and one a half segment for its product of decays, of its
+//     summed dt) and kept in registers.  A thread walks its segment as two
+//     chains of 8 positions at once (each half folded to a (product of
+//     decays, h from 0) pair, the two joined into the segment's), the
+//     segments' pairs join by a shuffle scan from the tile's start state,
+//     and both halves are walked again from their own start to keep h_t.
+//     The adjoint runs as a reverse scan: with q_t = a_t g_t (what flows
+//     into h_{t-1}), q_t = a_t (C_t dy_t + q_{t+1}), so each half folds to
+//     a (product of decays, q from 0) pair from its own decays, the
+//     segments' pairs join by a suffix scan, and the q carried into the
+//     tile before is the first segment's (dh_last into the last tile; dh0
+//     = q_0 after the first);
+//   * dx and ddt take sum_n g B and sum_n A g a h_{t-1}, two sums a
+//     position kept in registers over the states, and go out through
 //     shared memory; dA and dD accumulate over a thread's positions, join
 //     over the segments by shuffles and over the tiles in shared memory,
 //     and go to per-row partial sums;
 //   * dB and dC are sums over every channel, so they cross blocks.  No
 //     atomics: a warp's four channels join by a two-step butterfly of
-//     shuffles (each step halves the positions a lane holds, so 6 shuffles
-//     cover 8 positions), the 8 warps' sums go to shared memory kRedStates
-//     states at a time and are added in warp order into per-block partials
-//     (Bb, blocks, L, N) in device memory; a second launch
-//     (ssm_bwd_sum_kernel) adds the partials in block order, and the dA
-//     and dD partials in batch-row order.  Every sum has one fixed order,
-//     so two calls give the same bits;
-//   * exponentials: 2^(dt A log2 e) by ex2.approx, as K6, with the segment's
-//     product of decays one more exponential of its summed dt; each pass
-//     computes a_t once, so the kernel spends two exponentials a (position,
-//     channel, state), twice the floor.
+//     shuffles as the two chains walk back (a lane keeps one half of its
+//     segment and sends the other to the lane holding the next channel,
+//     which keeps that one, so the first step selects nothing), the 8
+//     warps' sums are added in warp order into the block's sums of the
+//     tile, each group's behind its own barrier (two buffers of the
+//     warps' sums, so one barrier a group); the
+//     kCluster blocks of a thread-block cluster (along the channels) then
+//     add their block sums in rank order through distributed shared
+//     memory, each rank a kTile / kCluster slice of the positions, into one
+//     partial per cluster (Bb, clusters, L, N): 34 MB at the shape above
+//     instead of 268 MB a block; a second launch (ssm_bwd_sum_kernel) adds
+//     the partials in cluster order, and the dA and dD partials in
+//     batch-row order.  Every sum has one fixed order, so two calls give
+//     the same bits.  The grid is rounded up to whole clusters: a padding
+//     block computes nothing and adds its zeros;
+//   * the next tile's x, dy (in their own type, 16-byte chunks), dt, B, C
+//     and start states are copied by cp.async into the one stage while the
+//     block computes this tile (plain loads where a row is not 16-byte
+//     aligned): each thread holds its positions' dt, dt x and dy in
+//     registers and x in shared memory, and B and C are laid out again by
+//     state, so the stage is free as soon as the tile begins;
+//   * registers bound it.  A thread keeps ~110 values for its 16 positions
+//     (dt, dt x, dy, the two sums, a_t and h_t), and two states at once
+//     need ~250: one block of 256 threads an SM, 8 warps (kMinBlocks 1).
+//     ptxas -v (sm_90a): 255 registers and 0 bytes spilled in each of the
+//     bf16, fp16 and f32 instantiations.  Two blocks an SM cap a thread at
+//     128 registers and spill several hundred bytes to local memory, which
+//     an SM whose shared memory is the kernel's holds in little L1: ~1.2x
+//     slower; one state at a time, four, or 48 channels a block were
+//     slower too (chip_kernel_steps.py k6b).
 // The scan reorders the f32 sums and ex2.approx is not expf, so the results
 // differ from the plain version's sequential recurrence in the last bits,
 // and dx, dB, dC and dD are rounded once to x's dtype.  It takes any
 // Bb <= 65535, L >= 1, Din >= 1 (the ragged last block is masked) and
-// 1 <= N <= 32, with or without h0 and dh_last.
+// 1 <= N <= 32, with or without dh_last and dh0.
 
 #include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kItems = 8;                      // positions a thread owns a tile
+constexpr int kItems = 16;                     // positions a thread owns a tile
 constexpr int kSegs = 8;                       // segments of a channel: lanes
+constexpr int kSegLane = 4;                    // lanes between a channel's segments
+constexpr int kChLane = 1;                     // lanes between a warp's channels
 constexpr int kChannels = 32;                  // channels a block
 constexpr int kThreads = kChannels * kSegs;    // 256
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = kSegs * kItems;          // positions a tile
-constexpr int kRedStates = 8;                  // states a dB / dC flush
-constexpr int kMinBlocks = 2;                  // resident blocks an SM asked for
+constexpr int kTile = kSegs * kItems;          // positions a tile (K6's kTile)
+constexpr int kHalf = kItems / 2;              // positions of each of a thread's two chains
+constexpr int kGroup = 2;                      // states a thread takes at once
+constexpr int kCluster = 8;                    // blocks a cluster, along the channels
+constexpr int kMinBlocks = 1;                  // resident blocks an SM asked for
 constexpr int kMaxState = 32;
 constexpr int kPad = 32 / kSegs;               // (position, channel) tiles: words after a segment
 constexpr int kRowPad = 4;                     // B, C tiles: words a segment
 constexpr int kTileWords = kTile * kChannels + kSegs * kPad;
 constexpr int kRowWords = kTile + kSegs * kRowPad + 4;   // + 4: states apart in banks
-constexpr int kRedPitch = kRedStates + 1;
-constexpr int kRedWords = kWarps * kTile * kRedPitch;    // one of dB, dC
+constexpr int kRedRow = kTile + kTile / 32;    // a warp's sums of a state: a word after 32 positions
+constexpr int kSlice = kTile / kCluster;       // positions of a tile a rank sums over the cluster
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kSegs == 8 && kChannels % 4 == 0, "a warp: 4 channels x 8 segments");
-static_assert(kItems == 8, "the butterfly halves 8 positions twice");
+static_assert(kSegs == 8 && kChannels % 4 == 0 &&
+                  ((kSegLane == 1 && kChLane == 8) || (kSegLane == 4 && kChLane == 1)),
+              "a warp: 4 channels x 8 segments, one of them the faster in lanes");
+static_assert(kItems == 16, "the channel join halves 16 positions twice");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -117,50 +155,87 @@ __device__ __forceinline__ int row_at(int n, int t) {
   return n * kRowWords + t + (t / kItems) * kRowPad;
 }
 
-// the shared memory of a block: x, dt, dy tiles (f32); B, C by state;
-// A log2 e, A, the carried state, the carried adjoint and dA per (state,
-// channel); dB and dC per (warp, position, state of a flush)
+// the stage, a tile as it arrives: x and dy rows of kChannels values in
+// their own type, dt rows in f32 (16 bytes of padding after each segment's
+// kItems rows), the B and C rows (kTile x N, as in device memory), and
+// the tile's start states (N x kChannels)
+template <typename T>
+struct Stage {
+  static constexpr int kXRow = kChannels * sizeof(T);
+  static constexpr int kXBytes = kTile * kXRow + kSegs * 16;
+  static constexpr int kDtBytes = kTile * kChannels * 4 + kSegs * 16;
+  static __host__ __device__ int bytes(int n) {
+    return 2 * kXBytes + kDtBytes + 2 * kTile * n * static_cast<int>(sizeof(T)) +
+           n * kChannels * 4;
+  }
+};
+
+__device__ __forceinline__ int raw_at(int t, int row_bytes) {   // bytes
+  return t * row_bytes + (t / kItems) * 16;
+}
+
+__host__ __device__ inline int padded_states(int n) {
+  return (n + kGroup - 1) / kGroup * kGroup;
+}
+
+// B and C by state; after the states, the ddt tile
+__host__ __device__ inline int union_words(int n) {
+  const int bc = 2 * padded_states(n) * kRowWords;
+  return bc > kTileWords ? bc : kTileWords;
+}
+
+// the x (then dx) tile in x's type, in whole 16 bytes
+template <typename T>
+__host__ __device__ inline int x_words() {
+  return (kTileWords * static_cast<int>(sizeof(T)) + 15) / 16 * 4;
+}
+
+// the shared memory of a block: the stage; B and C by state (then ddt);
+// x (then dx) as tile_at; the warps' dB and dC of two groups of kGroup
+// states (a group writes one while the block sums the other); the block's
+// dB and dC of the tile, [dB | dC][position][N + 1]; A, the tile's start
+// state, the carried adjoint and dA per (state, channel), the states
+// padded to whole groups
+template <typename T>
 inline size_t smem_bytes(int n) {
-  return sizeof(float) * (3 * static_cast<size_t>(kTileWords) + 2 * n * kRowWords +
-                          5 * n * kChannels + 2 * kRedWords);
+  return Stage<T>::bytes(n) +
+         sizeof(float) * (static_cast<size_t>(union_words(n)) + x_words<T>() +
+                          4 * kGroup * kWarps * kRedRow + 2 * kTile * (n + 1) +
+                          4 * padded_states(n) * kChannels);
 }
 
-// the scratch a call needs, in floats: tile start states (Bb, tiles, N,
-// Din), dB and dC partials (Bb, blocks, L, N) each, dA partials (Bb, Din,
-// N), dD partials (Bb, Din)
+inline int clusters_of(int Din) {
+  return ((Din + kChannels - 1) / kChannels + kCluster - 1) / kCluster;
+}
+
+// the scratch a call needs, in floats: dB and dC partials (Bb, clusters,
+// L, N) each, dA partials (Bb, Din, N), dD partials (Bb, Din)
 inline long long scratch_floats(int Bb, int L, int Din, int N) {
-  const long long tiles = (L + kTile - 1) / kTile;
-  const long long blocks = (Din + kChannels - 1) / kChannels;
-  return Bb * (tiles * N * Din + 2 * blocks * L * N + static_cast<long long>(Din) * N + Din);
-}
-
-// the four channels of a warp (lanes 8 apart) joined: v holds this lane's
-// 8 positions; out[j] gets position (lane & 8 ? 4 : 0) + (lane & 16 ? 2 : 0)
-// + j of the segment, summed over the four channels
-__device__ __forceinline__ void join_channels(const float (&v)[kItems], float (&out)[2],
-                                              int lane) {
-  const bool hi1 = lane & 8;
-  const bool hi2 = lane & 16;
-  float w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float send = hi1 ? v[j] : v[j + 4];
-    const float keep = hi1 ? v[j + 4] : v[j];
-    w[j] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const float send = hi2 ? w[j] : w[j + 2];
-    const float keep = hi2 ? w[j + 2] : w[j];
-    out[j] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-  }
+  return Bb * (2LL * clusters_of(Din) * L * N + static_cast<long long>(Din) * N + Din);
 }
 
 // a sum over the kSegs lanes of a channel, the same in every lane
 __device__ __forceinline__ float sum_segments(float v) {
 #pragma unroll
-  for (int d = kSegs / 2; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d, kSegs);
+  for (int d = kSegs / 2; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d * kSegLane);
   return v;
+}
+
+// 16 bytes from device memory into shared memory, the last 16 - bytes of
+// them zero (cp.async.cg: bypasses L1, lands while the block computes)
+__device__ __forceinline__ void copy16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+// the cluster's barrier in two halves: arrive (this block's shared memory
+// written), then wait (every block's written)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 template <typename T>
@@ -168,290 +243,470 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                         const T* __restrict__ Bm, const T* __restrict__ Cm,
                         const float* __restrict__ A, const T* __restrict__ D,
-                        const float* __restrict__ h0, const T* __restrict__ dy,
+                        const float* __restrict__ hs, const T* __restrict__ dy,
                         const float* __restrict__ dh_last, T* __restrict__ dx,
                         float* __restrict__ ddt, float* __restrict__ dh0,
-                        float* __restrict__ hs, float* __restrict__ part_b,
-                        float* __restrict__ part_c, float* __restrict__ part_a,
-                        float* __restrict__ part_d, int L, int Din, int N) {
-  extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;                       // as tile_at; then dx on the way out
-  float* dt_s = x_s + kTileWords;          // as tile_at; then ddt on the way out
-  float* dy_s = dt_s + kTileWords;
-  float* b_s = dy_s + kTileWords;          // as row_at
-  float* c_s = b_s + N * kRowWords;
-  float* a2_s = c_s + N * kRowWords;       // A log2 e, [N][kChannels]
-  float* an_s = a2_s + N * kChannels;      // A
-  float* h_s = an_s + N * kChannels;       // the carried state
-  float* q_s = h_s + N * kChannels;        // the carried adjoint
-  float* da_s = q_s + N * kChannels;       // dA over the tiles
-  float* red_b = da_s + N * kChannels;     // [warp][position][kRedPitch]
-  float* red_c = red_b + kRedWords;
+                        float* __restrict__ part_b, float* __restrict__ part_c,
+                        float* __restrict__ part_a, float* __restrict__ part_d, int L,
+                        int Din, int N, bool async) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const xr = smem;                              // the stage
+  unsigned char* const dtr = xr + Stage<T>::kXBytes;
+  unsigned char* const dyr = dtr + Stage<T>::kDtBytes;
+  unsigned char* const br = dyr + Stage<T>::kXBytes;
+  unsigned char* const cr = br + kTile * N * sizeof(T);
+  unsigned char* const hr = cr + kTile * N * sizeof(T);
+  float* const b_s = reinterpret_cast<float*>(smem + Stage<T>::bytes(N));   // as row_at
+  float* const c_s = b_s + padded_states(N) * kRowWords;
+  float* const ddt_s = b_s;                                    // as tile_at, after the states
+  T* const x_s = reinterpret_cast<T*>(b_s + union_words(N));  // x, then dx, as tile_at
+  // [2][kGroup][warp][dB | dC][kRedRow]
+  float* const red = b_s + union_words(N) + x_words<T>();
+  float* const sums = red + 4 * kGroup * kWarps * kRedRow;     // [dB | dC][t][N + 1]
+  const int npad = padded_states(N);
+  float* const an_s = sums + 2 * kTile * (N + 1);              // A, [npad][kChannels]
+  float* const h_s = an_s + npad * kChannels;                  // the tile's start state
+  float* const q_s = h_s + npad * kChannels;                   // the carried adjoint
+  float* const da_s = q_s + npad * kChannels;                  // dA over the tiles
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int c0 = blk * kChannels;
+  const int c0 = blockIdx.x * kChannels;
+  const size_t part_row = static_cast<size_t>(b) * (gridDim.x / kCluster) + blockIdx.x / kCluster;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int ch = warp * (32 / kSegs) + lane / kSegs;   // channel in block
-  const int seg = lane % kSegs;
+  const int ch = warp * (32 / kSegs) + lane / kChLane % 4;   // channel in block
+  const int seg = lane / kSegLane % kSegs;
   const size_t row = static_cast<size_t>(b) * L;
-  const int live = min(kChannels, Din - c0);
+  const int live = min(kChannels, Din - c0);           // <= 0: a padding block
+  const bool idle = live <= 0;
   const int tiles = (L + kTile - 1) / kTile;
+  const int pitch = N + 1;
+  // the channel join's halves: a lane keeps the half of its segment at
+  // off[0] and sends the half at off[1] to the lane 8 apart (the next
+  // channel, which keeps that half), then keeps or sends quarters to the
+  // lane 16 apart by hi2
+  const bool hi1 = lane & kChLane;
+  const bool hi2 = lane & (2 * kChLane);
+  const int off[2] = {hi1 ? kHalf : 0, hi1 ? 0 : kHalf};
 
-  for (int e = tid; e < kChannels * N; e += kThreads) {
-    const int cc = e / N;
-    const int n = e - cc * N;
-    const bool ok = cc < live;
-    const size_t at = (static_cast<size_t>(b) * Din + c0 + cc) * N + n;
-    const float a = ok ? A[static_cast<size_t>(c0 + cc) * N + n] : 0.f;
-    a2_s[n * kChannels + cc] = __fmul_rn(a, kLog2e);
-    an_s[n * kChannels + cc] = a;
-    h_s[n * kChannels + cc] = (ok && h0 != nullptr) ? h0[at] : 0.f;
-    q_s[n * kChannels + cc] = (ok && dh_last != nullptr) ? dh_last[at] : 0.f;
-    da_s[n * kChannels + cc] = 0.f;
+  for (int e = tid; e < kChannels * npad; e += kThreads) {   // padding states: 0
+    const int n = e / kChannels;
+    const int cc = e - n * kChannels;
+    const bool ok = cc < live && n < N;
+    an_s[e] = ok ? A[static_cast<size_t>(c0 + cc) * N + n] : 0.f;
+    q_s[e] = (ok && dh_last != nullptr)
+                 ? dh_last[(static_cast<size_t>(b) * Din + c0 + cc) * N + n]
+                 : 0.f;
+    h_s[e] = 0.f;
+    da_s[e] = 0.f;
   }
+  for (int e = tid; e < 2 * kTile * pitch; e += kThreads) sums[e] = 0.f;
   const float d = ch < live ? to_float(D[c0 + ch]) : 0.f;
 
-  // a (position, channel) tile of a (Bb, L, Din) tensor into f32, 0 past L
-  // and Din
-  auto load_tile = [&](float* dst, const auto* src, int t0, int rows) {
-    for (int e = tid; e < kTile * kChannels; e += kThreads) {
-      const int t = e / kChannels;
-      const int cc = e - t * kChannels;
-      const bool ok = t < rows && cc < live;
-      dst[tile_at(t, cc)] = ok ? to_float(src[(row + t0 + t) * Din + c0 + cc]) : 0.f;
-    }
-  };
-  // a tile of a (Bb, L, N) tensor by state, 0 past L
-  auto load_rows = [&](float* dst, const T* src, int t0, int rows) {
-    for (int e = tid; e < kTile * N; e += kThreads) {
-      const int t = e / N;
-      const int n = e - t * N;
-      dst[row_at(n, t)] = t < rows ? to_float(src[(row + t0) * N + e]) : 0.f;
-    }
-  };
-  // the tile start states of this block's channels: (tiles, N, Din) a row
-  auto hs_at = [&](int tile, int n, int cc) {
-    return hs + ((static_cast<size_t>(b) * tiles + tile) * N + n) * Din + c0 + cc;
-  };
-
-  // -- pass 1: the tiles' start states --------------------------------------
-  for (int tile = 0; tile < tiles; ++tile) {
+  // the tile into the stage: by cp.async where every row is 16-byte
+  // aligned (the launcher checks), else by plain loads; 0 past L and Din
+  auto fetch = [&](int tile) {
     const int t0 = tile * kTile;
     const int rows = min(kTile, L - t0);
-    __syncthreads();
-    for (int e = tid; e < kChannels * N; e += kThreads) {
-      const int n = e / kChannels;
-      const int cc = e - n * kChannels;
-      if (cc < live) *hs_at(tile, n, cc) = h_s[e];
-    }
-    if (tile == tiles - 1) break;            // the last tile's end is not needed
-    load_tile(x_s, x, t0, rows);
-    load_tile(dt_s, dt, t0, rows);
-    load_rows(b_s, Bm, t0, rows);
-    __syncthreads();
-    float dtv[kItems], dtx[kItems];
-    float dt_sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int at = tile_at(seg * kItems + i, ch);
-      dtv[i] = dt_s[at];
-      dtx[i] = dtv[i] * x_s[at];
-      dt_sum += dtv[i];
-    }
-    for (int n = 0; n < N; ++n) {
-      const float a2 = a2_s[n * kChannels + ch];
-      const float carry = h_s[n * kChannels + ch];
-      const float4* bq = reinterpret_cast<const float4*>(b_s + row_at(n, seg * kItems));
-      float P = decay(a2 * dt_sum);
-      float H = seg == 0 ? carry : 0.f;
-#pragma unroll
-      for (int q = 0; q < kItems / 4; ++q) {
-        const float4 v = bq[q];
-        const float bs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = 4 * q + k;
-          H = fmaf(decay(dtv[i] * a2), H, dtx[i] * bs[k]);
-        }
+    const float* hsrc = hs + (static_cast<size_t>(b) * tiles + tile) * N * Din + c0;
+    if (async) {
+      constexpr int kXChunks = Stage<T>::kXRow / 16;
+      for (int e = tid; e < kTile * kXChunks; e += kThreads) {
+        const int t = e / kXChunks;
+        const int j = e - t * kXChunks;
+        const int bytes = t < rows ? max(0, min(16, live * int(sizeof(T)) - 16 * j)) : 0;
+        const size_t at = (row + t0 + t) * Din + c0 + j * (16 / sizeof(T));
+        copy16(xr + raw_at(t, Stage<T>::kXRow) + 16 * j, bytes ? x + at : x, bytes);
+        copy16(dyr + raw_at(t, Stage<T>::kXRow) + 16 * j, bytes ? dy + at : dy, bytes);
       }
-#pragma unroll
-      for (int dd = 1; dd < kSegs; dd <<= 1) {
-        const float Pp = __shfl_up_sync(0xffffffffu, P, dd, kSegs);
-        const float Hp = __shfl_up_sync(0xffffffffu, H, dd, kSegs);
-        if (seg >= dd) {
-          H = fmaf(P, Hp, H);
-          P *= Pp;
-        }
+      constexpr int kDtChunks = kChannels * 4 / 16;
+      for (int e = tid; e < kTile * kDtChunks; e += kThreads) {
+        const int t = e / kDtChunks;
+        const int j = e - t * kDtChunks;
+        const int bytes = t < rows ? max(0, min(16, live * 4 - 16 * j)) : 0;
+        copy16(dtr + raw_at(t, kChannels * 4) + 16 * j,
+               bytes ? dt + (row + t0 + t) * Din + c0 + 4 * j : dt, bytes);
       }
-      __syncwarp();
-      if (seg == kSegs - 1) h_s[n * kChannels + ch] = H;
+      const int bc = rows * N * sizeof(T);           // the tile's B (and C) bytes
+      for (int e = tid; e < kTile * N * int(sizeof(T)) / 16; e += kThreads) {
+        const int bytes = max(0, min(16, bc - 16 * e));
+        const size_t at = (row + t0) * N + e * (16 / sizeof(T));
+        copy16(br + 16 * e, bytes ? Bm + at : Bm, bytes);
+        copy16(cr + 16 * e, bytes ? Cm + at : Cm, bytes);
+      }
+      for (int e = tid; e < N * kDtChunks; e += kThreads) {
+        const int n = e / kDtChunks;
+        const int j = e - n * kDtChunks;
+        const int bytes = max(0, min(16, live * 4 - 16 * j));
+        copy16(hr + (n * kChannels + 4 * j) * 4,
+               bytes ? hsrc + static_cast<size_t>(n) * Din + 4 * j : hs, bytes);
+      }
+    } else {
+      for (int e = tid; e < kTile * kChannels; e += kThreads) {
+        const int t = e / kChannels;
+        const int cc = e - t * kChannels;
+        const bool ok = t < rows && cc < live;
+        const size_t at = (row + t0 + t) * Din + c0 + cc;
+        reinterpret_cast<T*>(xr + raw_at(t, Stage<T>::kXRow))[cc] = ok ? x[at] : from_float<T>(0.f);
+        reinterpret_cast<T*>(dyr + raw_at(t, Stage<T>::kXRow))[cc] =
+            ok ? dy[at] : from_float<T>(0.f);
+        reinterpret_cast<float*>(dtr + raw_at(t, kChannels * 4))[cc] = ok ? dt[at] : 0.f;
+      }
+      for (int e = tid; e < kTile * N; e += kThreads) {
+        const bool ok = e < rows * N;
+        reinterpret_cast<T*>(br)[e] = ok ? Bm[(row + t0) * N + e] : from_float<T>(0.f);
+        reinterpret_cast<T*>(cr)[e] = ok ? Cm[(row + t0) * N + e] : from_float<T>(0.f);
+      }
+      for (int e = tid; e < N * kChannels; e += kThreads) {
+        const int n = e / kChannels;
+        const int cc = e - n * kChannels;
+        reinterpret_cast<float*>(hr)[e] = cc < live ? hsrc[static_cast<size_t>(n) * Din + cc] : 0.f;
+      }
     }
-  }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
 
-  // -- pass 2: the adjoint, tile by tile in reverse ----------------------------
   float dd_acc = 0.f;                        // dD: dy x over this thread's positions
+  bool pending = false;                      // the cluster's reads of `sums` not waited on
+  if (!idle) fetch(tiles - 1);
   for (int tile = tiles - 1; tile >= 0; --tile) {
     const int t0 = tile * kTile;
     const int rows = min(kTile, L - t0);
-    __syncthreads();
-    load_tile(x_s, x, t0, rows);
-    load_tile(dt_s, dt, t0, rows);
-    load_tile(dy_s, dy, t0, rows);
-    load_rows(b_s, Bm, t0, rows);
-    load_rows(c_s, Cm, t0, rows);
-    for (int e = tid; e < kChannels * N; e += kThreads) {
-      const int n = e / kChannels;
-      const int cc = e - n * kChannels;
-      h_s[e] = cc < live ? *hs_at(tile, n, cc) : 0.f;
-    }
-    __syncthreads();
-    float xv[kItems], dtv[kItems], dyv[kItems], dxv[kItems], ddtv[kItems];
-    float dt_sum = 0.f;
+    if (!idle) {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();
+      // out of the stage: dt, dt x and dy of this thread's positions into
+      // registers and x into x_s, by chain (chain 0 the half of the segment
+      // this lane keeps in the channel join, chain 1 the half it sends);
+      // B and C by state; the start states
+      float dtv[2][kHalf], dtx[2][kHalf], dyv[2][kHalf], s1[2][kHalf], s2[2][kHalf];
+      float dt_sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int at = tile_at(seg * kItems + i, ch);
-      xv[i] = x_s[at];
-      dtv[i] = dt_s[at];
-      dyv[i] = dy_s[at];
-      dt_sum += dtv[i];
-      dxv[i] = d * dyv[i];
-      ddtv[i] = 0.f;
-      dd_acc = fmaf(dyv[i], xv[i], dd_acc);
-    }
-    for (int n0 = 0; n0 < N; n0 += kRedStates) {
-      for (int n = n0; n < min(N, n0 + kRedStates); ++n) {
-        const float a2 = a2_s[n * kChannels + ch];
-        const float an = an_s[n * kChannels + ch];
-        const float carry_h = h_s[n * kChannels + ch];
-        const float carry_q = q_s[n * kChannels + ch];
-        float bs[kItems], cs[kItems];
+      for (int c = 0; c < 2; ++c) {
 #pragma unroll
-        for (int q = 0; q < kItems / 4; ++q) {
-          const float4 vb = reinterpret_cast<const float4*>(b_s + row_at(n, seg * kItems))[q];
-          const float4 vc = reinterpret_cast<const float4*>(c_s + row_at(n, seg * kItems))[q];
-          bs[4 * q] = vb.x, bs[4 * q + 1] = vb.y, bs[4 * q + 2] = vb.z, bs[4 * q + 3] = vb.w;
-          cs[4 * q] = vc.x, cs[4 * q + 1] = vc.y, cs[4 * q + 2] = vc.z, cs[4 * q + 3] = vc.w;
+        for (int k = 0; k < kHalf; ++k) {
+          const int t = seg * kItems + off[c] + k;
+          const T xt = reinterpret_cast<const T*>(xr + raw_at(t, Stage<T>::kXRow))[ch];
+          const float xv = to_float(xt);
+          dtv[c][k] = reinterpret_cast<const float*>(dtr + raw_at(t, kChannels * 4))[ch];
+          dyv[c][k] = to_float(reinterpret_cast<const T*>(dyr + raw_at(t, Stage<T>::kXRow))[ch]);
+          dtx[c][k] = dtv[c][k] * xv;
+          dd_acc = fmaf(dyv[c][k], xv, dd_acc);
+          dt_sum[c] += dtv[c][k];
+          x_s[tile_at(t, ch)] = xt;
+          s1[c][k] = 0.f;                    // sum_n g B
+          s2[c][k] = 0.f;                    // sum_n A g a h_{t-1}
         }
-        // the states again: the segment's pair, the scan, then the walk
-        // keeping h_{t-1} and a_t
-        float da[kItems], hp[kItems], dc[kItems], db[kItems];
-        const float P0 = decay(a2 * dt_sum);
-        float P = P0;
-        float H = seg == 0 ? carry_h : 0.f;
+      }
+      for (int e = tid; e < kTile * kMaxState; e += kThreads) {
+        const int t = e / kMaxState;
+        const int n = e % kMaxState;
+        if (n < npad) {
+          b_s[row_at(n, t)] = n < N ? to_float(reinterpret_cast<const T*>(br)[t * N + n]) : 0.f;
+          c_s[row_at(n, t)] = n < N ? to_float(reinterpret_cast<const T*>(cr)[t * N + n]) : 0.f;
+        }
+      }
+      for (int e = tid; e < N * kChannels; e += kThreads)
+        h_s[e] = reinterpret_cast<const float*>(hr)[e];
+      __syncthreads();
+      if (tile > 0) fetch(tile - 1);         // lands while this tile computes
+
+      for (int n0 = 0; n0 < npad; n0 += kGroup) {
+        // kGroup states at once, each step below over all of them and both
+        // chains, so that their latency chains overlap
+        float an[kGroup], a2[kGroup], carry_h[kGroup], carry_q[kGroup];
+        const float4* bq[kGroup][2];
+        const float4* cq[kGroup][2];
 #pragma unroll
-        for (int i = 0; i < kItems; ++i) {
-          da[i] = decay(dtv[i] * a2);
-          H = fmaf(da[i], H, dtv[i] * xv[i] * bs[i]);
+        for (int g = 0; g < kGroup; ++g) {
+          const int n = n0 + g;
+          an[g] = an_s[n * kChannels + ch];
+          a2[g] = __fmul_rn(an[g], kLog2e);
+          carry_h[g] = h_s[n * kChannels + ch];
+          carry_q[g] = q_s[n * kChannels + ch];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            bq[g][c] = reinterpret_cast<const float4*>(b_s + row_at(n, seg * kItems + off[c]));
+            cq[g][c] = reinterpret_cast<const float4*>(c_s + row_at(n, seg * kItems + off[c]));
+          }
+        }
+        // four B (or C) values of a chain at this thread's positions (the
+        // same four for the warp's four channels: read again at each use,
+        // as registers are what bounds the kernel)
+        auto quad = [](const float4* const (&src)[kGroup][2], int g, int c, int q4,
+                       float (&out)[4]) {
+          const float4 v = src[g][c][q4];
+          out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+        };
+        // the states: a_t once a position, each half's pair, the
+        // segment's, the scan from the tile's start state, then both
+        // halves walked at once keeping h_t
+        float da[kGroup][2][kHalf], hn[kGroup][2][kHalf];
+        float Hc[kGroup][2];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) Hc[g][0] = Hc[g][1] = 0.f;
+#pragma unroll
+        for (int q4 = 0; q4 < kHalf / 4; ++q4) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            float bs[2][4];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) quad(bq, g, c, q4, bs[c]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int k = 4 * q4 + kk;
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                da[g][c][k] = decay(dtv[c][k] * a2[g]);
+                Hc[g][c] = fmaf(da[g][c][k], Hc[g][c], dtx[c][k] * bs[c][kk]);
+              }
+            }
+          }
+        }
+        float P_lo[kGroup], P_hi[kGroup], P[kGroup], H_lo[kGroup], H[kGroup], Pc[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          const float Pk = decay(a2[g] * dt_sum[0]);   // each half's product of decays
+          const float Ps = decay(a2[g] * dt_sum[1]);
+          P_lo[g] = hi1 ? Ps : Pk;
+          P_hi[g] = hi1 ? Pk : Ps;
+          H_lo[g] = hi1 ? Hc[g][1] : Hc[g][0];
+          const float H_hi = hi1 ? Hc[g][0] : Hc[g][1];
+          P[g] = P_lo[g] * P_hi[g];
+          H[g] = fmaf(P_hi[g], H_lo[g], H_hi);
+          if (seg == 0) H[g] = fmaf(P[g], carry_h[g], H[g]);
+          Pc[g] = P[g];
         }
 #pragma unroll
         for (int dd = 1; dd < kSegs; dd <<= 1) {
-          const float Pp = __shfl_up_sync(0xffffffffu, P, dd, kSegs);
-          const float Hp = __shfl_up_sync(0xffffffffu, H, dd, kSegs);
-          if (seg >= dd) {
-            H = fmaf(P, Hp, H);
-            P *= Pp;
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            const float Pp = __shfl_up_sync(0xffffffffu, Pc[g], dd * kSegLane);
+            const float Hp = __shfl_up_sync(0xffffffffu, H[g], dd * kSegLane);
+            if (seg >= dd) {
+              H[g] = fmaf(Pc[g], Hp, H[g]);
+              Pc[g] *= Pp;
+            }
           }
         }
-        float h = __shfl_up_sync(0xffffffffu, H, 1, kSegs);
-        if (seg == 0) h = carry_h;
+        float h0c[kGroup][2], hc[kGroup][2];
 #pragma unroll
-        for (int i = 0; i < kItems; ++i) {
-          hp[i] = h;
-          h = fmaf(da[i], h, dtv[i] * xv[i] * bs[i]);
-          dc[i] = dyv[i] * h;
+        for (int g = 0; g < kGroup; ++g) {
+          float h_start = __shfl_up_sync(0xffffffffu, H[g], kSegLane);
+          if (seg == 0) h_start = carry_h[g];
+          const float h_mid = fmaf(P_lo[g], h_start, H_lo[g]);
+          h0c[g][0] = hc[g][0] = hi1 ? h_mid : h_start;
+          h0c[g][1] = hc[g][1] = hi1 ? h_start : h_mid;
         }
-        // the adjoint: q_t = a_t (C_t dy_t + q_{t+1}); the segment's pair
-        // (product of decays, q from 0), the last segment's from the carry
-        float Q = 0.f;
 #pragma unroll
-        for (int i = kItems - 1; i >= 0; --i) Q = da[i] * fmaf(cs[i], dyv[i], Q);
-        P = P0;
-        if (seg == kSegs - 1) Q = fmaf(P, carry_q, Q);
+        for (int q4 = 0; q4 < kHalf / 4; ++q4) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            float bs[2][4];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) quad(bq, g, c, q4, bs[c]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int k = 4 * q4 + kk;
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                hc[g][c] = fmaf(da[g][c][k], hc[g][c], dtx[c][k] * bs[c][kk]);
+                hn[g][c][k] = hc[g][c];
+              }
+            }
+          }
+        }
+        // the adjoint: q_t = a_t (C_t dy_t + q_{t+1}); each half's pair
+        // (product of decays, q from 0), the segment's, the last
+        // segment's from the carry, the suffix scan
+        float Qc[kGroup][2];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) Qc[g][0] = Qc[g][1] = 0.f;
+#pragma unroll
+        for (int q4 = kHalf / 4 - 1; q4 >= 0; --q4) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            float cs[2][4];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) quad(cq, g, c, q4, cs[c]);
+#pragma unroll
+            for (int kk = 3; kk >= 0; --kk) {
+              const int k = 4 * q4 + kk;
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                Qc[g][c] = da[g][c][k] * fmaf(cs[c][kk], dyv[c][k], Qc[g][c]);
+            }
+          }
+        }
+        float Q_hi[kGroup], Q[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          const float Q_lo = hi1 ? Qc[g][1] : Qc[g][0];
+          Q_hi[g] = hi1 ? Qc[g][0] : Qc[g][1];
+          Q[g] = fmaf(P_lo[g], Q_hi[g], Q_lo);
+          if (seg == kSegs - 1) Q[g] = fmaf(P[g], carry_q[g], Q[g]);
+          Pc[g] = P[g];
+        }
 #pragma unroll
         for (int dd = 1; dd < kSegs; dd <<= 1) {
-          const float Pn = __shfl_down_sync(0xffffffffu, P, dd, kSegs);
-          const float Qn = __shfl_down_sync(0xffffffffu, Q, dd, kSegs);
-          if (seg + dd < kSegs) {
-            Q = fmaf(P, Qn, Q);
-            P *= Pn;
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            const float Pn = __shfl_down_sync(0xffffffffu, Pc[g], dd * kSegLane);
+            const float Qn = __shfl_down_sync(0xffffffffu, Q[g], dd * kSegLane);
+            if (seg + dd < kSegs) {
+              Q[g] = fmaf(Pc[g], Qn, Q[g]);
+              Pc[g] *= Pn;
+            }
           }
         }
-        float q = __shfl_down_sync(0xffffffffu, Q, 1, kSegs);
-        if (seg == kSegs - 1) q = carry_q;
+        float qc[kGroup][2];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          float q = __shfl_down_sync(0xffffffffu, Q[g], kSegLane);
+          if (seg == kSegs - 1) q = carry_q[g];
+          const float q_mid = fmaf(P_hi[g], q, Q_hi[g]);   // into the low half
+          qc[g][0] = hi1 ? q : q_mid;
+          qc[g][1] = hi1 ? q_mid : q;
+        }
         __syncwarp();
-        if (seg == 0) q_s[n * kChannels + ch] = Q;   // into the tile before
-        float dal = 0.f;
 #pragma unroll
-        for (int i = kItems - 1; i >= 0; --i) {
-          const float g = fmaf(cs[i], dyv[i], q);
-          const float gdt = g * dtv[i];
-          const float ah = da[i] * hp[i];
-          dxv[i] = fmaf(gdt, bs[i], dxv[i]);
-          ddtv[i] = fmaf(g, fmaf(xv[i], bs[i], an * ah), ddtv[i]);
-          dal = fmaf(gdt, ah, dal);
-          db[i] = gdt * xv[i];
-          q = da[i] * g;
+        for (int g = 0; g < kGroup; ++g)
+          if (seg == 0) q_s[(n0 + g) * kChannels + ch] = Q[g];   // into the tile before
+        // both halves walked back at once: the gradients a position; dB
+        // and dC join over the warp's four channels as they come (each
+        // lane keeps its chain 0 and sends its chain 1 to the lane 8
+        // apart, which holds the other half), then over lanes 16 apart
+        float dal[kGroup][2], wb[kGroup][kHalf], wc[kGroup][kHalf];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) dal[g][0] = dal[g][1] = 0.f;
+#pragma unroll
+        for (int q4 = kHalf / 4 - 1; q4 >= 0; --q4) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            float bs[2][4], cs[2][4];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              quad(bq, g, c, q4, bs[c]);
+              quad(cq, g, c, q4, cs[c]);
+            }
+#pragma unroll
+            for (int kk = 3; kk >= 0; --kk) {
+              const int k = 4 * q4 + kk;
+              float gb[2], gc[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float gr = fmaf(cs[c][kk], dyv[c][k], qc[g][c]);
+                qc[g][c] = da[g][c][k] * gr;   // q_t = a_t g_t; a_t g_t h_{t-1}:
+                const float w = qc[g][c] * (k > 0 ? hn[g][c][k > 0 ? k - 1 : 0] : h0c[g][c]);
+                s1[c][k] = fmaf(gr, bs[c][kk], s1[c][k]);
+                s2[c][k] = fmaf(an[g], w, s2[c][k]);
+                dal[g][c] = fmaf(dtv[c][k], w, dal[g][c]);
+                gb[c] = gr * dtx[c][k];
+                gc[c] = dyv[c][k] * hn[g][c][k];
+              }
+              wb[g][k] = gb[0] + __shfl_xor_sync(0xffffffffu, gb[1], kChLane);
+              wc[g][k] = gc[0] + __shfl_xor_sync(0xffffffffu, gc[1], kChLane);
+            }
+          }
         }
-        dal = sum_segments(dal);
-        if (seg == 0) da_s[n * kChannels + ch] += dal;
-        float ob[2], oc[2];
-        join_channels(db, ob, lane);
-        join_channels(dc, oc, lane);
-        const int t = seg * kItems + ((lane & 8) ? 4 : 0) + ((lane & 16) ? 2 : 0);
+        float* const rg = red + (n0 / kGroup & 1) * kGroup * kWarps * 2 * kRedRow;
+        const int t = seg * kItems + off[0] + (hi2 ? kHalf / 2 : 0);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          red_b[(warp * kTile + t + j) * kRedPitch + n - n0] = ob[j];
-          red_c[(warp * kTile + t + j) * kRedPitch + n - n0] = oc[j];
+        for (int g = 0; g < kGroup; ++g) {
+          float* rb = rg + (g * kWarps + warp) * 2 * kRedRow;
+#pragma unroll
+          for (int j = 0; j < kHalf / 2; ++j) {
+            const float sb = hi2 ? wb[g][j] : wb[g][j + kHalf / 2];
+            const float sc = hi2 ? wc[g][j] : wc[g][j + kHalf / 2];
+            rb[t + j + (t >> 5)] =
+                (hi2 ? wb[g][j + kHalf / 2] : wb[g][j]) + __shfl_xor_sync(0xffffffffu, sb, 2 * kChLane);
+            rb[kRedRow + t + j + (t >> 5)] =
+                (hi2 ? wc[g][j + kHalf / 2] : wc[g][j]) + __shfl_xor_sync(0xffffffffu, sc, 2 * kChLane);
+          }
+          const float dal_n = sum_segments(dal[g][0] + dal[g][1]);
+          if (seg == 0) da_s[(n0 + g) * kChannels + ch] += dal_n;
+        }
+        __syncthreads();
+        if (pending) {                       // the cluster has read the last tile's sums
+          cluster_wait();
+          pending = false;
+        }
+        // the block's dB and dC of these states: the warps' sums in order
+        // (the next group writes the other buffer, and the one after this
+        // one, behind the next barrier: one barrier a group)
+        for (int e = tid; e < kGroup * 2 * kTile; e += kThreads) {
+          const int g = e / (2 * kTile);
+          const int val = (e / kTile) & 1;
+          const int tt = e % kTile;
+          const float* rs = rg + (g * kWarps * 2 + val) * kRedRow;
+          if (tt < rows && n0 + g < N) {
+            float sm = 0.f;
+#pragma unroll
+            for (int w2 = 0; w2 < kWarps; ++w2) sm += rs[w2 * 2 * kRedRow + tt + (tt >> 5)];
+            sums[(val * kTile + tt) * pitch + n0 + g] = sm;
+          }
         }
       }
-      __syncthreads();
-      // the block's dB and dC of these states: the warps' sums in order
-      const int ns = min(kRedStates, N - n0);
-      for (int e = tid; e < rows * ns; e += kThreads) {
-        const int t = e / ns;
-        const int nn = e - t * ns;
-        float sb = 0.f, sc = 0.f;
+      // dx (in place of x) and ddt (over B and C: the last state's barrier
+      // is behind every read of them) of this thread's positions
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          sb += red_b[(w * kTile + t) * kRedPitch + nn];
-          sc += red_c[(w * kTile + t) * kRedPitch + nn];
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int k = 0; k < kHalf; ++k) {
+          const int at = tile_at(seg * kItems + off[c] + k, ch);
+          const float xv = to_float(x_s[at]);
+          ddt_s[at] = fmaf(xv, s1[c][k], s2[c][k]);
+          x_s[at] = from_float<T>(fmaf(dtv[c][k], s1[c][k], d * dyv[c][k]));
         }
-        const size_t at = ((static_cast<size_t>(b) * nblk + blk) * L + t0 + t) * N + n0 + nn;
-        part_b[at] = sb;
-        part_c[at] = sc;
       }
-      __syncthreads();
     }
+    if (pending) {                           // a padding block
+      cluster_wait();
+      pending = false;
+    }
+    cluster_arrive();                        // this block's sums and out tiles written
+    cluster_wait();
+    // this rank's slice of the tile: the cluster's blocks' sums in rank order
+    for (int e = tid; e < 2 * kSlice * N; e += kThreads) {
+      const int val = e / (kSlice * N);
+      const int r2 = e - val * kSlice * N;
+      const int t = rank * kSlice + r2 / N;
+      const int n = r2 % N;
+      if (t < rows) {
+        const int at = (val * kTile + t) * pitch + n;
+        float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {         // each thread its own slots
-      const int at = tile_at(seg * kItems + i, ch);
-      x_s[at] = dxv[i];
-      dt_s[at] = ddtv[i];
-    }
-    __syncthreads();
-    for (int e = tid; e < rows * kChannels; e += kThreads) {
-      const int t = e / kChannels;
-      const int cc = e - t * kChannels;
-      if (cc < live) {
-        const size_t at = (row + t0 + t) * Din + c0 + cc;
-        dx[at] = from_float<T>(x_s[tile_at(t, cc)]);
-        ddt[at] = dt_s[tile_at(t, cc)];
+        for (int r = 0; r < kCluster; ++r) s += cluster.map_shared_rank(sums, r)[at];
+        (val ? part_c : part_b)[(part_row * L + t0 + t) * N + n] = s;
       }
     }
+    if (!idle) {
+      for (int e = tid; e < rows * kChannels; e += kThreads) {
+        const int t = e / kChannels;
+        const int cc = e - t * kChannels;
+        if (cc < live) {
+          const size_t at = (row + t0 + t) * Din + c0 + cc;
+          dx[at] = x_s[tile_at(t, cc)];
+          ddt[at] = ddt_s[tile_at(t, cc)];
+        }
+      }
+    }
+    cluster_arrive();                        // done reading the cluster's sums
+    pending = true;
   }
+  cluster_wait();                            // no block leaves while its sums are read
+  if (idle) return;
   dd_acc = sum_segments(dd_acc);
-  __syncthreads();
   for (int e = tid; e < kChannels * N; e += kThreads) {
-    const int cc = e / N;
-    const int n = e - cc * N;
+    const int n = e / kChannels;
+    const int cc = e - n * kChannels;
     if (cc < live) {
       const size_t at = (static_cast<size_t>(b) * Din + c0 + cc) * N + n;
-      part_a[at] = da_s[n * kChannels + cc];
-      if (dh0 != nullptr) dh0[at] = q_s[n * kChannels + cc];
+      part_a[at] = da_s[e];
+      if (dh0 != nullptr) dh0[at] = q_s[e];
     }
   }
   if (seg == 0 && ch < live) part_d[static_cast<size_t>(b) * Din + c0 + ch] = dd_acc;
@@ -489,45 +744,69 @@ __global__ void __launch_bounds__(256) ssm_bwd_sum_kernel(const __grid_constant_
   }
 }
 
+// the shared memory above 48 KB, and all of the SM's shared memory as
+// such, asked for once per type
 template <typename T>
 cudaError_t prepare(int smem) {
-  static int granted = 48 * 1024;
+  static int granted = -1;
   if (smem <= granted) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
+  cudaError_t e = cudaFuncSetAttribute(
       ssm_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssm_scan_bwd_kernel<T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess) granted = smem;
   return e;
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* Bm, const void* Cm, const void* A,
-           const void* D, const void* h0, const void* dy, const void* dh_last, void* dx,
+           const void* D, const void* hs, const void* dy, const void* dh_last, void* dx,
            void* ddt, void* dB, void* dC, void* dA, void* dD, void* dh0, float* scratch,
            long long scratch_len, int Bb, int L, int Din, int N, cudaStream_t stream) {
-  if (N < 1 || N > kMaxState || Bb < 1 || Bb > 65535 || L < 1 || Din < 1 ||
-      scratch_len < scratch_floats(Bb, L, Din, N) || (dh0 != nullptr && h0 == nullptr))
+  if (N < 1 || N > kMaxState || Bb < 1 || Bb > 65535 || L < 1 || Din < 1 || hs == nullptr ||
+      scratch_len < scratch_floats(Bb, L, Din, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(smem_bytes(N));
+  const int smem = static_cast<int>(smem_bytes<T>(N));
   cudaError_t e = prepare<T>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long tiles = (L + kTile - 1) / kTile;
-  const int blocks = (Din + kChannels - 1) / kChannels;
-  float* hs = scratch;
-  float* part_b = hs + Bb * tiles * N * Din;
-  float* part_c = part_b + static_cast<long long>(Bb) * blocks * L * N;
-  float* part_a = part_c + static_cast<long long>(Bb) * blocks * L * N;
+  // cp.async moves 16-byte pieces: every row of x, dt, dy, B, C and the
+  // start states must start on a 16-byte boundary
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool async = aligned(x) && aligned(dt) && aligned(dy) && aligned(Bm) && aligned(Cm) &&
+                     aligned(hs) && Din * sizeof(T) % 16 == 0 && Din % 4 == 0 &&
+                     static_cast<size_t>(L) * N * sizeof(T) % 16 == 0;
+  const int clusters = clusters_of(Din);
+  float* part_b = scratch;
+  float* part_c = part_b + static_cast<long long>(Bb) * clusters * L * N;
+  float* part_a = part_c + static_cast<long long>(Bb) * clusters * L * N;
   float* part_d = part_a + static_cast<long long>(Bb) * Din * N;
-  ssm_scan_bwd_kernel<T><<<dim3(blocks, Bb), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const T*>(D),
-      static_cast<const float*>(h0), static_cast<const T*>(dy),
-      static_cast<const float*>(dh_last), static_cast<T*>(dx), static_cast<float*>(ddt),
-      static_cast<float*>(dh0), hs, part_b, part_c, part_a, part_d, L, Din, N);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kCluster, Bb);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ssm_scan_bwd_kernel<T>, static_cast<const T*>(x),
+                         static_cast<const float*>(dt), static_cast<const T*>(Bm),
+                         static_cast<const T*>(Cm), static_cast<const float*>(A),
+                         static_cast<const T*>(D), static_cast<const float*>(hs),
+                         static_cast<const T*>(dy), static_cast<const float*>(dh_last),
+                         static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(dh0),
+                         part_b, part_c, part_a, part_d, L, Din, N, async);
+  if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   SumJobs jobs;
-  jobs.job[0] = {part_b, dB, Bb, static_cast<long long>(L) * N, blocks, 0};
-  jobs.job[1] = {part_c, dC, Bb, static_cast<long long>(L) * N, blocks, 0};
+  jobs.job[0] = {part_b, dB, Bb, static_cast<long long>(L) * N, clusters, 0};
+  jobs.job[1] = {part_c, dC, Bb, static_cast<long long>(L) * N, clusters, 0};
   jobs.job[2] = {part_a, dA, 1, static_cast<long long>(Din) * N, Bb, 1};
   jobs.job[3] = {part_d, dD, 1, Din, Bb, 0};
   const long long most = std::max(static_cast<long long>(Bb) * L * N,
@@ -537,16 +816,49 @@ int launch(const void* x, const void* dt, const void* Bm, const void* Cm, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int occupancy(int N, int* out) {
+  const int smem = static_cast<int>(smem_bytes<T>(N));
+  cudaError_t e = prepare<T>(smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, ssm_scan_bwd_kernel<T>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ssm_scan_bwd_kernel<T>, kThreads,
+                                                      smem);
+  if (e == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster * 1024);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = kCluster;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&out[1], ssm_scan_bwd_kernel<T>, &cfg);
+  }
+  if (e == cudaSuccess) {
+    out[2] = attr.numRegs;
+    out[3] = static_cast<int>(attr.localSizeBytes);
+    out[4] = smem;
+    out[5] = kThreads;
+  }
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, B, C, D, dy, and dx,
-// dB, dC, dD alike); dt, A, h0, dh_last, and ddt, dA, dh0 are f32; h0,
-// dh_last and dh0 may be null (dh0 only with h0); scratch: f32 of
-// scratch_len >= scratch_floats(Bb, L, Din, N) floats (else the call is
-// refused).  Two launches on `stream`:
-// the scan, then the sums across blocks and batch rows.
+// dB, dC, dD alike); dt, A, hs, dh_last, and ddt, dA, dh0 are f32; hs:
+// K6's tile start states (Bb, ceil(L / kTile), N, Din); dh_last and dh0
+// may be null; scratch: f32 of scratch_len >= scratch_floats(Bb, L, Din,
+// N) floats (else the call is refused).  Two launches on `stream`: the
+// scan (clusters of kCluster blocks), then the sums across clusters and
+// batch rows.
 extern "C" int ssm_scan_bwd_launch(const void* x, const void* dt, const void* B, const void* C,
-                                   const void* A, const void* D, const void* h0, const void* dy,
+                                   const void* A, const void* D, const void* hs, const void* dy,
                                    const void* dh_last, void* dx, void* ddt, void* dB, void* dC,
                                    void* dA, void* dD, void* dh0, void* scratch,
                                    long long scratch_len, int Bb, int L, int Din, int N,
@@ -555,14 +867,31 @@ extern "C" int ssm_scan_bwd_launch(const void* x, const void* dt, const void* B,
   float* s = static_cast<float*>(scratch);
   switch (dtype) {
     case 0:
-      return launch<float>(x, dt, B, C, A, D, h0, dy, dh_last, dx, ddt, dB, dC, dA, dD, dh0, s,
+      return launch<float>(x, dt, B, C, A, D, hs, dy, dh_last, dx, ddt, dB, dC, dA, dD, dh0, s,
                            scratch_len, Bb, L, Din, N, st);
     case 1:
-      return launch<__nv_bfloat16>(x, dt, B, C, A, D, h0, dy, dh_last, dx, ddt, dB, dC, dA, dD,
+      return launch<__nv_bfloat16>(x, dt, B, C, A, D, hs, dy, dh_last, dx, ddt, dB, dC, dA, dD,
                                    dh0, s, scratch_len, Bb, L, Din, N, st);
     case 2:
-      return launch<__half>(x, dt, B, C, A, D, h0, dy, dh_last, dx, ddt, dB, dC, dA, dD, dh0, s,
+      return launch<__half>(x, dt, B, C, A, D, hs, dy, dh_last, dx, ddt, dB, dC, dA, dD, dh0, s,
                             scratch_len, Bb, L, Din, N, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the scan kernel's residency at N states: out = (blocks an SM, clusters
+// the card holds at once, registers a thread, local-memory bytes a
+// thread, dynamic shared memory bytes a block, threads a block)
+extern "C" int ssm_scan_bwd_occupancy(int N, int dtype, int* out) {
+  if (N < 1 || N > kMaxState) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0:
+      return occupancy<float>(N, out);
+    case 1:
+      return occupancy<__nv_bfloat16>(N, out);
+    case 2:
+      return occupancy<__half>(N, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

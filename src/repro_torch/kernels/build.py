@@ -59,11 +59,15 @@ SIGNATURES = {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
     # the same arguments (the tensor-core route)
     "flash_attention_bwd_tc_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
-    # x, dt, B, C, A, D, h0 (or 0), y, h_last, Bb, L, Din, N, dtype, stream
-    "ssm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
-    # x, dt, B, C, A, D, h0 (or 0), dy, dh_last (or 0), dx, ddt, dB, dC, dA,
-    # dD, dh0 (or 0), scratch, scratch floats, Bb, L, Din, N, dtype, stream
+    # x, dt, B, C, A, D, h0 (or 0), y, h_last, tile states (or 0), Bb, L,
+    # Din, N, dtype, stream
+    "ssm_scan_launch": [_P] * 10 + [_I] * 5 + [_P],
+    # x, dt, B, C, A, D, tile states, dy, dh_last (or 0), dx, ddt, dB, dC,
+    # dA, dD, dh0 (or 0), scratch, scratch floats, Bb, L, Din, N, dtype,
+    # stream
     "ssm_scan_bwd_launch": [_P] * 17 + [_L] + [_I] * 5 + [_P],
+    # N, dtype, out (6 ints: K6b's scan kernel's residency)
+    "ssm_scan_bwd_occupancy": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -12,17 +12,20 @@ agree within repro's 1e-4, not bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 
 def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                  C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                 h0: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 h0: Optional[torch.Tensor] = None,
+                 state_tile: Optional[int] = None):
     """x, dt: (Bb,L,Din); B, C: (Bb,L,N); A: (Din,N); D: (Din,);
-    h0: (Bb,Din,N) or None -> (y (Bb,L,Din) in x.dtype, h_last f32)."""
+    h0: (Bb,Din,N) or None -> (y (Bb,L,Din) in x.dtype, h_last f32); with
+    ``state_tile`` also the state at the start of each ``state_tile``
+    positions, (Bb, ceil(L / state_tile), N, Din) f32 (h0 first), as K6
+    writes them for its backward."""
     bb, l, din = x.shape
     n = A.shape[1]
     xf, dtf = x.float(), dt.float()
@@ -30,12 +33,17 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     h = torch.zeros((bb, din, n), dtype=torch.float32, device=x.device) \
         if h0 is None else h0.float().clone()
     ys = torch.empty((bb, l, din), dtype=torch.float32, device=x.device)
+    starts = []
     for t in range(l):
+        if state_tile and t % state_tile == 0:
+            starts.append(h.transpose(1, 2))
         dtt = dtf[:, t]                                     # (Bb,Din)
         da = torch.exp(dtt[..., None] * Af[None])           # (Bb,Din,N)
         h = da * h + (dtt * xf[:, t])[..., None] * Bf[:, t, None, :]
         ys[:, t] = torch.einsum("bdn,bn->bd", h, Cf[:, t])
     y = ys + D.float()[None, None] * xf
+    if state_tile:
+        return y.to(x.dtype), h, torch.stack(starts, 1).contiguous()
     return y.to(x.dtype), h
 
 

@@ -912,6 +912,36 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
         ssm_ops.ssm_scan(*wide[:6])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("bb,l,din,n", [
+    (1, 1024, 8192, 16),        # falcon-mamba-7b's admit
+    (2, 200, 100, 16),          # a ragged last tile, ragged Din
+    (1, 1, 33, 32),             # one position: one tile of padding
+    (3, 129, 300, 5),           # one position past a tile
+])
+def test_ssm_scan_kernel_tile_states(cuda, dtype, with_h0, bb, l, din, n):
+    """K6 asked for its tile start states gives the same y and h_last,
+    bit for bit, as without; the states match the plain scan's h at each
+    STATE_TILE-position tile's start within 1e-5 of max |h| (h0 first)."""
+    x, dt, B, C, A, D, h0 = _scan_inputs(bb, l, din, n, dtype, cuda,
+                                         seed=l + din * n)
+    h0 = h0 if with_h0 else None
+    y, h = ssm_kernel.ssm_scan_cuda(x, dt, B, C, A, D, h0)
+    y2, h2, hs = ssm_kernel.ssm_scan_cuda(x, dt, B, C, A, D, h0, states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    tiles = -(-l // ssm_kernel.STATE_TILE)
+    assert hs.shape == (bb, tiles, n, din) and hs.dtype == torch.float32
+    _, _, want = ssm_ref.ssm_scan_ref(x, dt, B, C, A, D, h0,
+                                      state_tile=ssm_kernel.STATE_TILE)
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((hs - want).abs().max()) <= 1e-5 * scale
+    if h0 is not None:
+        assert torch.equal(hs[:, 0], h0.transpose(1, 2))
+
+
 # K6b against its plain version, by the gradient's dtype: each f32
 # gradient (all of them from f32 inputs; ddt, dA and dh0 from bf16 ones)
 # within 1e-4 of its max |ref| (the scan's sums in another order,
@@ -925,13 +955,16 @@ K6B_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 @pytest.mark.parametrize("with_h0,with_dh", [(True, True), (False, False),
                                              (True, False), (False, True)])
 @pytest.mark.parametrize("bb,l,din,n", [
-    (2, 200, 100, 16),          # ragged tiles and channel blocks
+    (2, 200, 100, 16),          # ragged tiles; 4 blocks in a padded cluster
     (1, 1, 33, 32),             # one position, one channel past a block
-    (3, 129, 300, 5),           # N not a power of two, off the state flush
+    (3, 129, 300, 5),           # N not a power of two; 10 blocks, 2 clusters
     (1, 1024, 512, 16),         # falcon-mamba-7b's training length
 ])
 def test_ssm_scan_backward_kernel_equals_plain(cuda, dtype, with_h0, with_dh,
                                                bb, l, din, n):
+    """K6b fed by K6's tile start states (``SsmScanFn`` under autograd,
+    then ``ssm_scan_bwd_cuda`` directly) against the plain backward, each
+    gradient within K6B_TOL of its max |ref|; two calls bit-equal."""
     x, dt, B, C, A, D, h0 = _scan_inputs(bb, l, din, n, dtype, cuda,
                                          seed=l * din + n)
     g = torch.Generator(device=cuda).manual_seed(n)
@@ -955,32 +988,72 @@ def test_ssm_scan_backward_kernel_equals_plain(cuda, dtype, with_h0, with_dh,
         err = float((x_.float() - w.float()).abs().max()
                     / max(float(w.float().abs().max()), 1e-30))
         assert err <= K6B_TOL[w.dtype], (name, err)
-    again = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh)
-    first = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh)
+    hs = ssm_kernel.ssm_scan_cuda(x, dt, B, C, A, D, h0, states=True)[2]
+    again = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh, hs)
+    first = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh, hs)
     assert all(a is None and c is None or torch.equal(a, c)
                for a, c in zip(first, again))            # no atomics
+    assert all(a is None and c is None or torch.equal(a, c)
+               for a, c in zip(first, got + ((None,) if not with_h0
+                                             else ())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("din", [520, 2048 + 32, 7 * 256 + 1])
+def test_ssm_scan_backward_kernel_padded_clusters(cuda, dtype, din):
+    """Din whose blocks of 32 channels do not fill whole clusters of 8:
+    the grid is rounded up to whole clusters (17 blocks in 3 clusters,
+    65 in 9, 57 in 8), the padding blocks add zeros to dB and dC; every
+    gradient within K6B_TOL of the plain backward's, two calls bit-equal."""
+    bb, l, n = 2, 300, 16
+    x, dt, B, C, A, D, h0 = _scan_inputs(bb, l, din, n, dtype, cuda, seed=din)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn((bb, l, din), generator=g, device=cuda).to(dtype)
+    dh = torch.randn((bb, din, n), generator=g, device=cuda)
+    hs = ssm_kernel.ssm_scan_cuda(x, dt, B, C, A, D, h0, states=True)[2]
+    got = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh, hs)
+    again = ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, dh, hs)
+    torch.cuda.synchronize()
+    want = ssm_ref.ssm_scan_bwd_ref(x, dt, B, C, A, D, h0, dy, dh)
+    for name, x_, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD", "dh0"),
+                           got, want):
+        err = float((x_.float() - w.float()).abs().max()
+                    / max(float(w.float().abs().max()), 1e-30))
+        assert err <= K6B_TOL[w.dtype], (name, err)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.cuda
 def test_ssm_scan_backward_refuses_before_a_launch(cuda):
     x, dt, B, C, A, D, h0 = _scan_inputs(1, 8, 16, 4, torch.bfloat16, cuda, 0)
     dy = torch.zeros_like(x)
+    hs = ssm_kernel.ssm_scan_cuda(x, dt, B, C, A, D, h0, states=True)[2]
     before = ssm_ops.ssm_scan.bwd_launches
     with pytest.raises(ValueError, match="dy"):
-        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy.float(), None)
+        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy.float(), None,
+                                     hs)
     with pytest.raises(ValueError, match="dh_last"):
         ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy,
-                                     torch.zeros((1, 16, 5), device=cuda))
+                                     torch.zeros((1, 16, 5), device=cuda), hs)
     with pytest.raises(ValueError, match="float32"):
         ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0.bfloat16(), dy,
-                                     None)
+                                     None, hs)
+    with pytest.raises(ValueError, match="states"):
+        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, None,
+                                     hs.transpose(2, 3).contiguous())
+    with pytest.raises(ValueError, match="states"):
+        ssm_kernel.ssm_scan_bwd_cuda(x, dt, B, C, A, D, h0, dy, None,
+                                     hs.double())
     wide = _scan_inputs(1, 8, 16, 33, torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="N <= 32"):
         ssm_kernel.ssm_scan_bwd_cuda(*wide, torch.zeros((1, 8, 16),
-                                                        device=cuda), None)
+                                                        device=cuda), None,
+                                     hs)
     with pytest.raises(ValueError, match="CUDA"):
         ssm_kernel.ssm_scan_bwd_cuda(*(t.cpu() for t in (x, dt, B, C, A, D,
-                                                         h0)), dy.cpu(), None)
+                                                         h0)), dy.cpu(), None,
+                                     hs.cpu())
     assert ssm_ops.ssm_scan.bwd_launches == before
 
 
