@@ -312,7 +312,7 @@ __global__ void k2_bisect(const uint32_t* __restrict__ keys_hi,
 }  // namespace
 extern "C" int ring_lookup_bucketed_launch(const void* kh, const void* kl,
     const void* bh, const void* bl, const void* occ, void* oh, void* ol,
-    int64_t q, int bits, void* stream) {
+    int64_t q, int bits, int64_t warp_keys, void* stream) {
   k2_bisect<<<static_cast<unsigned>((q + 255) / 256), 256, 0,
               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(kh), static_cast<const uint32_t*>(kl),
@@ -364,7 +364,7 @@ __global__ void k2_lanes8(const uint32_t* __restrict__ keys_hi,
 }  // namespace
 extern "C" int ring_lookup_bucketed_launch(const void* kh, const void* kl,
     const void* bh, const void* bl, const void* occ, void* oh, void* ol,
-    int64_t q, int bits, void* stream) {
+    int64_t q, int bits, int64_t warp_keys, void* stream) {
   const int64_t blocks = (q * kLanes + 255) / 256;
   k2_lanes8<<<static_cast<unsigned>(blocks), 256, 0,
               static_cast<cudaStream_t>(stream)>>>(
@@ -522,36 +522,33 @@ def k2_alternatives(dev):
     table = state.device_bucket_table()
     src = build.CSRC / "ring_lookup.cu"
     window = "constexpr int kWindow = 8;"
-    warp_keys = "constexpr int64_t kK2WarpKeys = 4096;"
     libs = {"bisect": variant_library(
                 "k2_bisect", build_dir_source("k2_bisect.cu", K2_BISECT_CU)),
             "lanes8": variant_library(
                 "k2_lanes8", build_dir_source("k2_lanes8.cu", K2_LANES8_CU)),
             "window16": variant_library(
                 "k2_window16", src, {window: "constexpr int kWindow = 16;"}),
-            "window_only": variant_library(
-                "k2_window_only", src,
-                {warp_keys: "constexpr int64_t kK2WarpKeys = 0;"}),
-            "warp_only": variant_library(
-                "k2_warp_only", src,
-                {warp_keys: "constexpr int64_t kK2WarpKeys = INT64_MAX;"})}
+            "window_only": build.library(),    # the launch's warp_keys 0
+            "warp_only": build.library()}      # and 2^62: one route each
+    warp_keys = {"window_only": 0, "warp_only": 1 << 62}
     bits = table[0].shape[0].bit_length() - 1
     row = {}
     for name, ks in k2_cases(keys).items():
         khi, klo = words(ks, dev)
         want = ring_lookup_bucketed_ref(khi, klo, *table)
 
-        def alt(i, lib):
+        def alt(i, lib, wk=4096):
             oh, ol = torch.empty_like(khi), torch.empty_like(klo)
             checked(lib.ring_lookup_bucketed_launch(
                 khi.data_ptr(), klo.data_ptr(), table[0].data_ptr(),
                 table[1].data_ptr(), table[2].data_ptr(), oh.data_ptr(),
-                ol.data_ptr(), khi.numel(), bits,
+                ol.data_ptr(), khi.numel(), bits, wk,
                 torch.cuda.current_stream(dev).cuda_stream))
             return oh, ol
         fns = {"kernel": lambda i: rl_ops.ring_lookup_bucketed(khi, klo,
                                                                *table)}
-        fns.update({what: (lambda i, lib=lib: alt(i, lib))
+        fns.update({what: (lambda i, lib=lib, wk=warp_keys.get(what, 4096):
+                           alt(i, lib, wk))
                     for what, lib in libs.items()})
         for what, fn in fns.items():
             got = fn(0)
@@ -565,7 +562,8 @@ def k2_alternatives(dev):
     for n in K2_SWEEP:
         khi, klo = words(keys[:n], dev)
         for what in ("window_only", "warp_only"):
-            sweep[f"{what}_{n}"] = device_ms(lambda i: alt(i, libs[what]))
+            sweep[f"{what}_{n}"] = device_ms(
+                lambda i: alt(i, libs[what], warp_keys[what]))
     emit({"phase": "k2_alternatives", **row, "route_sweep_device_ms": sweep})
 
 
@@ -748,9 +746,6 @@ extern "C" int steps_probe(int variant, int* out) {
                          "constexpr bool kOneModulo = false;"},
         "fast_log": {"const float dly = __fmul_rn(-logf(u01(h)), c.delta);":
                      "const float dly = __fmul_rn(-__logf(u01(h)), c.delta);"},
-        **{f"grid_waves{k}": {"constexpr int kGridWaves = 4;":
-                              f"constexpr int kGridWaves = {k};"}
-           for k in (1, 2, 64)},
     }, r"""
 extern "C" int steps_probe(int variant, int* out) {
   cudaFuncAttributes attr;
@@ -802,17 +797,22 @@ def k4(dev):
         args = smoke.k4_inputs(dev, seed=smoke.SEED + i)
         want = tree_math(*args, **kw)
         order = popcount_order(args[0])
-        cases = {name: (lib, args, want) for name, lib in libs.items()}
+        cases = {name: (lib, args, want, None) for name, lib in libs.items()}
         cases["sorted_pairs"] = (libs["kernel"],
                                  tuple(a[order] for a in args),
-                                 tuple(w[order] for w in want))
+                                 tuple(w[order] for w in want), None)
+        if which == "pr17":       # the grid, an argument of edra_tree_launch
+            cases.update({f"grid_waves{k}": (libs["kernel"], args, want,
+                                             {"grid_waves": k})
+                          for k in (1, 2, 64)})
         row = {"variant": vname, "pairs": int(args[0].numel()),
                "hops": int(want[2].sum())}
-        for name, (lib, a, w) in cases.items():
+        for name, (lib, a, w, tiles) in cases.items():
             with routed_to(lib):
-                got = ek.edra_tree_cuda(*a, **kw)
+                got = ek.edra_tree_cuda(*a, tiles=tiles, **kw)
                 torch.cuda.synchronize()
-                fn = lambda j: ek.edra_tree_cuda(*a, **kw)  # noqa: E731
+                fn = lambda j: ek.edra_tree_cuda(*a, tiles=tiles,  # noqa: E731
+                                                 **kw)
                 row[name] = {
                     "ms": smoke.cuda_ms(fn), "device_ms": device_ms(fn),
                     "integers_equal": all(torch.equal(g, x) for g, x in

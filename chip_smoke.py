@@ -281,7 +281,35 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            60, the restored params and moments equal what step 20 saved,
            bit for bit, the last logged loss below the first, K5 and K5b
            12 tensor-core launches a step run (70), and the checkpoint
-           directory removed at the end.
+           directory removed at the end;
+  autotune the launch shapes searched on the card
+           (``kernels/autotune.py``; the whole run points
+           ``REPRO_TORCH_AUTOTUNE_CACHE`` at a fresh temporary file, so
+           every phase above ran at the defaults): ``autotune_all`` over
+           ``SWEEP_DIMS`` with a budget of ``AUTOTUNE_BUDGET_S``, K1's grid
+           cap, K7's and K2's route switches, K4's grid waves and K3's
+           chunk (tensor cores) and splits (SIMT); every candidate's
+           output held against the plain version (K1, K2, K4, K7 exactly,
+           K3 within 1.6e-2 in bf16 and 2e-5 in f32); a line a point with
+           every candidate's device ms (``device_readings``: the calls
+           queued behind a spin, so the host's launch cost is not
+           timed) and their spread, the default's, the winner (the
+           default unless beaten by more than its spread) and its ratio
+           to the default, and nvidia-smi's name and power limit;
+           ``tiles_for`` then returns the winners and ``status_label()``
+           reads ``searched``; then qwen2.5-3b at full size, one replica of
+           16 slots, 16 sessions admitted, its fused round (K2 on a
+           10^6-peer directory, K3 at B 16) timed at the defaults and at
+           the winners in turns from one saved state, the winners'
+           resolutions all cache hits.  Gates: the round at the winners
+           with K3 at its default launch shape gives the defaults' tokens,
+           every one (it is the round at all the winners when K3's winner
+           is its default); and at every K3 chunk candidate, the winner
+           among them, the round's logits stay within ``K3_LOGIT_MOVE``
+           of the defaults' (a chunk other than the default's merges the
+           softmax partials in another order, which moves bf16 last bits
+           and may flip a token whose top two logits are that close; the
+           flips are printed, not gated).
 
 Then the kernel summary line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0.  Without a CUDA
@@ -294,8 +322,10 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -351,6 +381,9 @@ K3_LENGTHS = {(8, 1500, "bfloat16", WHISPER_HEADS): (1500, 1500),
 K3_MAIN = (16, 2048, "bfloat16", QWEN_HEADS)   # the largest decode bucket
 K3_TOL = {"bfloat16": BF16_ATOL, "float16": BF16_ATOL, "float32": 2e-5}
 K2_ROUND_KEYS = 32                 # the fused decode round's full house
+AUTOTUNE_BUDGET_S = 90.0           # autotune_all's wall-time budget
+AUTOTUNE_ROUND = 16                # the tuned round: 16 sessions, 16 slots
+K3_LOGIT_MOVE = 0.25               # most a K3 chunk may move the round's logits
 CHURN = dict(n=10**6, s_avg=174 * 60, duration=1800.0, warmup=300.0,
              seed=1)               # bench_maintenance.py --full, 10^6 row
 K4_PAIRS = 1 << 21                 # pairs per launch of simulate_churn
@@ -1401,6 +1434,7 @@ def main() -> int:
         results[key]["max_err"] = results[key]["max_abs_err"]
     if "launches" not in results["K6b"]:
         raise AssertionError("K6b never ran on a training path")
+    autotune_phase(dev)
     emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
                                            "K5b", "K6", "K6b", "K7")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4352,6 +4386,188 @@ def train_lm_phase(dev) -> dict:
     return counts
 
 
+def autotune_phase(dev) -> None:
+    """The launch shapes searched on the card, their outputs held against
+    the plain versions, and qwen2.5-3b's fused round of 16 at the defaults
+    and at the winners (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.ringstate import RingState
+    from repro_torch.kernels import autotune
+    from repro_torch.models import Model
+    from repro_torch.serve import Replica, Request
+    smi = _smi()
+    records = {}
+    t0 = time.perf_counter()
+    winners = autotune.autotune_all(budget_s=AUTOTUNE_BUDGET_S, device=dev,
+                                    records=records)
+    sweep_s = time.perf_counter() - t0
+    points = {f"{k}/{autotune.shape_bucket(**d)}": (k, d)
+              for k, shapes in autotune.SWEEP_DIMS.items() for d in shapes}
+    if set(winners) != set(points):
+        raise AssertionError(f"the sweep stopped at its budget: "
+                             f"{sorted(set(points) - set(winners))} left")
+    for name, (kernel, dims) in points.items():
+        rec = records[name]
+        cands = autotune.candidates_for(kernel, dims)
+        if len(cands) > 1:
+            ran = [c["tiles"] for c in rec.get("candidates", [])]
+            if ran != cands:
+                raise AssertionError(f"autotune {name}: candidates {cands} "
+                                     f"but ran {ran}")
+            tol = 1.6e-2 if kernel == "decode_attention" and dims["tc"] \
+                else 2e-5 if kernel == "decode_attention" else 0.0
+            bad = [c for c in rec["candidates"]
+                   if not c["max_abs_err_vs_plain"] <= tol]
+            if bad:
+                raise AssertionError(f"autotune {name}: {bad} off the plain "
+                                     f"version (tolerance {tol})")
+        got = autotune.tiles_for(kernel, dev, **dims)
+        if got != winners[name]:
+            raise AssertionError(f"tiles_for({name}) = {got}, the search "
+                                 f"found {winners[name]}")
+        emit({"phase": "autotune", "point": name, "dims": dims,
+              "candidates": rec.get("candidates", []),
+              "default": autotune.DEFAULTS[kernel],
+              "default_ms": rec.get("default_ms"),
+              "default_spread_ms": rec.get("default_spread_ms"),
+              "winner": winners[name],
+              "winner_ms": rec.get("ms"),
+              "winner_over_default": rec.get("winner_over_default"),
+              "nvidia_smi": smi})
+    if autotune.status_label() != "searched":
+        raise AssertionError(f"status_label {autotune.status_label()}")
+
+    # qwen2.5-3b's fused round of 16: one replica, K2 on a 10^6-peer
+    # directory (2^15 buckets), K3 at B 16, S 2048 -- the sweep's points
+    cfg = get_config("qwen2.5-3b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    rng = np.random.default_rng(SEED + 30)
+    ring = RingState(np.unique(rng.integers(0, 2**64, N_PEERS,
+                                            dtype=np.uint64)), device=dev)
+    route = ring.device_bucket_table()
+    if route is None or route[0].shape[0] != BUCKETS:
+        raise AssertionError(f"the round's directory: {ring.bucket_stats()}")
+    rep = Replica(model, slots=AUTOTUNE_ROUND, max_len=2048,
+                  prefill_chunk=256, device=dev)
+    rep.attach_params(params)
+    for i, n in enumerate(rng.integers(128, 1025, size=AUTOTUNE_ROUND)):
+        rep.admit(Request(f"tune-{i}", rng.integers(0, cfg.vocab, int(n),
+                                                    dtype=np.int32), 4))
+    saved = ({k: v.clone() for k, v in rep.cache.items()},
+             rep.tokens.copy(), rep.lengths.copy())
+
+    def restore():
+        for k, v in saved[0].items():
+            rep.cache[k].copy_(v)
+        rep.tokens[:] = saved[1]
+        rep.lengths[:] = saved[2]
+
+    # one cache file a launch-shape set: the defaults (no file), the
+    # winners, the winners with K3 at its default, and each K3 chunk alone
+    winners_path = os.environ[autotune.CACHE_ENV]
+    k3_point = "decode_attention/b16_h16_hd128_hkv2_s2048_tc1"
+    k3_key = autotune._entry_key(dev, "decode_attention",
+                                 k3_point.split("/")[1])
+    tuned = autotune.load_cache(winners_path)
+    if k3_key not in tuned["entries"]:
+        raise AssertionError(f"no winner for {k3_point} in the cache")
+    paths = {"defaults": winners_path + ".none", "winners": winners_path}
+    k3_default = winners[k3_point] == autotune.DEFAULTS["decode_attention"]
+    if not k3_default:
+        paths["winners_k3_default"] = winners_path + ".k3default"
+        autotune._save_cache(
+            {"version": tuned["version"],
+             "entries": {**tuned["entries"], k3_key: {
+                 "tiles": autotune.DEFAULTS["decode_attention"]}}},
+            paths["winners_k3_default"])
+    chunks = [c["chunk"] for c in autotune.candidates_for(
+        "decode_attention", points[k3_point][1]) if c["chunk"]]
+    for c in chunks:
+        paths[f"chunk{c}"] = f"{winners_path}.chunk{c}"
+        autotune._save_cache(
+            {"version": autotune.CACHE_VERSION,
+             "entries": {k3_key: {"tiles": {"chunk": c, "splits": 0}}}},
+            paths[f"chunk{c}"])
+
+    def use(which):
+        os.environ[autotune.CACHE_ENV] = paths[which]
+        autotune.reset()
+        restore()
+
+    def round_at(which):
+        use(which)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = rep.decode_round(route=route)
+        ms = (time.perf_counter() - t) * 1e3
+        label = autotune.status_label()
+        os.environ[autotune.CACHE_ENV] = winners_path
+        return toks, ms, label
+
+    def logits_at(which):
+        """The round's (slots, V) logits from the saved state (the full
+        house: row = slot, as ``decode_round`` steps it)."""
+        use(which)
+        with torch.no_grad():
+            lg, _ = model.decode_step(
+                params, rep.cache, torch.from_numpy(rep.tokens).to(dev),
+                torch.from_numpy(rep.lengths).to(dev))
+        os.environ[autotune.CACHE_ENV] = winners_path
+        return lg.float()
+
+    rounds = ["defaults", "winners"] + (["winners_k3_default"]
+                                        if not k3_default else [])
+    round_at("defaults")                     # warm-up
+    runs = {which: [] for which in rounds}
+    toks = {}
+    for which in rounds + rounds[::-1]:
+        toks[which], ms, label = round_at(which)
+        if label != ("defaults" if which == "defaults" else "cache"):
+            raise AssertionError(f"the round at the {which} resolved as "
+                                 f"{label}")
+        runs[which].append(ms)
+    if sorted(toks["winners"]) != sorted(rep.sessions) \
+            or len(toks["winners"]) != AUTOTUNE_ROUND:
+        raise AssertionError("the round at the winners lost a session")
+    exact = rounds[-1]                       # the winners, K3 at its default
+    if toks[exact] != toks["defaults"]:
+        raise AssertionError(f"the round at the {exact} gave other tokens: "
+                             f"{toks[exact]} against {toks['defaults']}")
+    ld = logits_at("defaults")
+    top = ld.argmax(dim=-1)
+    for sid, slot in rep.sessions.items():
+        if int(top[slot]) != toks["defaults"][sid]:
+            raise AssertionError("decode_step's logits and the round's "
+                                 "tokens disagree")
+    moves = {}
+    for c in chunks:
+        lc = logits_at(f"chunk{c}")
+        moved = float((lc - ld).abs().max())
+        moves[c] = {"max_abs_logit_moved": moved,
+                    "tokens_flipped": int((lc.argmax(dim=-1) != top).sum())}
+        if not moved <= K3_LOGIT_MOVE:
+            raise AssertionError(f"K3 chunk {c} moved the round's logits by "
+                                 f"{moved} > {K3_LOGIT_MOVE}")
+    flips = {sid: {"defaults": toks["defaults"][sid],
+                   "winners": toks["winners"][sid]}
+             for sid in rep.sessions
+             if toks["winners"][sid] != toks["defaults"][sid]}
+    emit({"phase": "autotune_round", "model": cfg.name,
+          "sessions": AUTOTUNE_ROUND, "sweep_s": sweep_s,
+          "round_ms": runs, "tokens_equal_exact": exact,
+          "winners_tokens_flipped": flips, "k3_chunk_moves": moves,
+          "k3_logit_move_max": K3_LOGIT_MOVE,
+          "max_abs_logit": float(ld.abs().max()),
+          "k2_winner": winners["ring_lookup_bucketed/b32768_q16"],
+          "k3_winner": winners[k3_point], "nvidia_smi": smi})
+    del rep, params, model, saved, route, ring
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _paths(tree, pre=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -4379,4 +4595,9 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # every phase runs on the defaults of a fresh launch-shape cache: no
+    # user's cache can move a gate, and the autotune phase writes here
+    with tempfile.TemporaryDirectory(prefix="repro-torch-autotune-") as tmp:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+            tmp, "autotune.json")
+        sys.exit(main())

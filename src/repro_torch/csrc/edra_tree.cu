@@ -58,7 +58,8 @@ constexpr int kTile = kThreads;            // pairs a block sorts and walks at o
 constexpr int kBins = 33;                  // hops: 0..32
 constexpr bool kSortTile = true;           // walk the tile in order of hops
 constexpr bool kOneModulo = true;          // one modulo a pair where it is exact
-constexpr int kGridWaves = 4;              // grid: resident blocks x this
+constexpr int kGridWaves = 4;              // grid: resident blocks x this (the
+//                                            default of the launch's grid_waves)
 
 enum Variant { kUnbuffered = 0, kBuffered = 1, kEarlyClose = 2 };
 
@@ -259,8 +260,9 @@ extern "C" int edra_tree_launch(const void* offset, const void* n_ring,
                                 int levels, int variant, float theta,
                                 float inv_theta, float e_buf, float e_cap_m1,
                                 float inv_fill, float delta, uint32_t phase_key,
-                                void* stream) {
-  if (levels < 1 || levels > 32 || variant < kUnbuffered || variant > kEarlyClose)
+                                int grid_waves, void* stream) {
+  if (levels < 1 || levels > 32 || variant < kUnbuffered || variant > kEarlyClose ||
+      grid_waves < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Consts c{theta, inv_theta, e_buf, e_cap_m1, inv_fill, delta, phase_key,
                  levels};
@@ -269,7 +271,7 @@ extern "C" int edra_tree_launch(const void* offset, const void* n_ring,
   if (e != cudaSuccess) return static_cast<int>(e);
   int64_t blocks = (p + kTile - 1) / kTile;
   const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sm_count();
-  if (blocks > resident * kGridWaves) blocks = resident * kGridWaves;
+  if (blocks > resident * grid_waves) blocks = resident * grid_waves;
   auto* o = static_cast<const uint32_t*>(offset);
   auto* nr = static_cast<const uint32_t*>(n_ring);
   auto* r = static_cast<const uint32_t*>(reporter);

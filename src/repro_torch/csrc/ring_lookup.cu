@@ -127,9 +127,10 @@ constexpr int kRowWidth = 128;   // = RingState._BUCKET_ROW
 constexpr int kThreads = 256;
 constexpr int kSample = 4096;    // K1's splitter sample: 32 KB of uint64
 constexpr int kK1Threads = 1024;
-constexpr int kK1BlocksPerSM = 1;
+constexpr int kK1BlocksPerSM = 1;   // the default of the launch's blocks_per_sm
 constexpr int kWindow = 8;   // K2's first read: slots a 32-byte sector holds
 constexpr int64_t kK2WarpKeys = 4096;   // K2 takes a warp a key up to here
+//                                         (the default of the launch's warp_keys)
 constexpr int kK7Levels = 15;           // K7's sample tree: 15 levels,
 constexpr int kK7Sample = 32767;        // (1 << kK7Levels) - 1 nodes, 128 KB
 constexpr int kK7Threads = 1024;
@@ -439,17 +440,20 @@ __global__ void ring_lookup_bucketed_kernel(const uint32_t* __restrict__ keys_hi
 
 }  // namespace
 
+// blocks_per_sm caps the grid at that many blocks an SM (the tuned launch
+// shape, kernels/autotune.py; kK1BlocksPerSM is its default)
 extern "C" int ring_lookup64_launch(const void* keys_hi, const void* keys_lo,
                                     const void* table_hi, const void* table_lo,
                                     const void* n_live, void* out, int64_t q,
-                                    void* stream) {
+                                    int blocks_per_sm, void* stream) {
+  if (blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks = std::min<int64_t>((q + kK1Threads - 1) / kK1Threads,
-                                           static_cast<int64_t>(sms) * kK1BlocksPerSM);
+                                           static_cast<int64_t>(sms) * blocks_per_sm);
   ring_lookup64_kernel<<<static_cast<unsigned>(blocks), kK1Threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys_hi), static_cast<const uint32_t*>(keys_lo),
@@ -501,10 +505,13 @@ extern "C" int ring_lookup_sampled_launch(const void* keys, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+// up to warp_keys keys a warp a key, else a thread a key (the tuned launch
+// shape, kernels/autotune.py; kK2WarpKeys is its default)
 extern "C" int ring_lookup_bucketed_launch(const void* keys_hi, const void* keys_lo,
                                            const void* bkt_hi, const void* bkt_lo,
                                            const void* occ, void* out_hi, void* out_lo,
-                                           int64_t q, int bits, void* stream) {
+                                           int64_t q, int bits, int64_t warp_keys,
+                                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* kh = static_cast<const uint32_t*>(keys_hi);
   const auto* kl = static_cast<const uint32_t*>(keys_lo);
@@ -513,7 +520,7 @@ extern "C" int ring_lookup_bucketed_launch(const void* keys_hi, const void* keys
   const auto* oc = static_cast<const int32_t*>(occ);
   auto* oh = static_cast<uint32_t*>(out_hi);
   auto* ol = static_cast<uint32_t*>(out_lo);
-  if (q <= kK2WarpKeys) {
+  if (q <= warp_keys) {
     const int64_t blocks = (q + kThreads / 32 - 1) / (kThreads / 32);
     ring_lookup_bucketed_warp_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         kh, kl, bh, bl, oc, oh, ol, q, bits);

@@ -30,14 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
-    # keys_hi, keys_lo, table_hi, table_lo, n, out, q, stream
-    "ring_lookup64_launch": [_P] * 6 + [_L, _P],
+    # keys_hi, keys_lo, table_hi, table_lo, n, out, q, blocks_per_sm, stream
+    "ring_lookup64_launch": [_P] * 6 + [_L, _I, _P],
     # keys, table, out, q, n, stream
     "ring_lookup_launch": [_P] * 3 + [_L, _I, _P],
     # keys, table, sample scratch, out, q, n, stream
     "ring_lookup_sampled_launch": [_P] * 4 + [_L, _I, _P],
-    # keys_hi, keys_lo, bkt_hi, bkt_lo, occ, out_hi, out_lo, q, bits, stream
-    "ring_lookup_bucketed_launch": [_P] * 7 + [_L, _I, _P],
+    # keys_hi, keys_lo, bkt_hi, bkt_lo, occ, out_hi, out_lo, q, bits,
+    # warp_keys, stream
+    "ring_lookup_bucketed_launch": [_P] * 7 + [_L, _I, _L, _P],
     # q, k, v, length, out, m_part, l_part, acc_part,
     # B, S, H, Hkv, hd, splits, dtype, vec, scale, stream
     "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
@@ -46,9 +47,10 @@ SIGNATURES = {
     "decode_attention_tc_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     # offset, n, reporter, t_detect, event_key, ack, ttl, depth, parent,
     # sends, p, levels, variant, theta, inv_theta, e_buf, e_cap_m1,
-    # inv_fill, delta, phase_key (a uint32: c_int would wrap >= 2^31), stream
+    # inv_fill, delta, phase_key (a uint32: c_int would wrap >= 2^31),
+    # grid_waves, stream
     "edra_tree_launch": [_P] * 10 + [_L, _I, _I] + [_F] * 6
-    + [ctypes.c_uint32, _P],
+    + [ctypes.c_uint32, _I, _P],
     # q, k, v, out, lse (or 0), B, Sq, Sk, H, Hkv, hd (q and k), hdv (v
     # and out), causal, dtype, scale, stream
     "flash_attention_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
@@ -97,6 +99,13 @@ def _digest() -> str:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_digest() -> str:
+    """The digest of ``csrc/`` and the flags that names the built library
+    (``libkernels-<digest>.so``); ``kernels/autotune.py`` keys its cache
+    entries on it."""
+    return _digest()
 
 
 def _compile(target: Path) -> str:

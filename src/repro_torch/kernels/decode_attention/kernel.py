@@ -7,17 +7,23 @@ the dtype and the head layout alone before any launch (``route``): bf16
 and fp16 at hd % 16 == 0 (hd <= 128) with g = H / Hkv <= 16 run on the
 tensor cores in one launch, everything else (f32, other head layouts) on
 the SIMT split and combine kernels, whose f32 arithmetic meets the 2e-5
-tolerance.  The design notes sit in the CUDA sources.  Outputs are
-allocated here with ``torch.empty``; the kernels launch on the current
-stream and do not synchronise.
+tolerance.  The design notes sit in the CUDA sources.  The launch shape
+(the tensor-core route's ``chunk``, the SIMT route's ``splits``) comes
+from ``autotune.tiles_for``, or from ``tiles=`` (a search's candidate),
+where 0 means this module's heuristic (``chunk_positions`` /
+``num_splits``), the default.  Outputs are allocated here with
+``torch.empty``; the kernels launch on the current stream and do not
+synchronise.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from .. import build
+from ..autotune import tiles_for
 from ..backend import raw_stream
 
 SM_COUNT_TARGET = 2 * 132     # SIMT: blocks to aim for, two waves of SMs
@@ -103,16 +109,30 @@ def _check(q, k_cache, v_cache, length):
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor,
-                          length: torch.Tensor) -> torch.Tensor:
+                          v_cache: torch.Tensor, length: torch.Tensor,
+                          tiles: Optional[dict] = None) -> torch.Tensor:
     """q: (B,H,hd); caches: (B,S,Hkv,hd); length: (B,) int32 -> (B,H,hd),
-    on the route ``route`` picks."""
+    on the route ``route`` picks, at the launch shape ``tiles`` (default:
+    ``tiles_for``)."""
     dims = _check(q, k_cache, v_cache, length)
-    b, s, h, hkv, hd = dims
-    if route(q.dtype, hd, h // hkv) == "tc":
-        return _launch_tc(q, k_cache, v_cache, length, dims,
-                          chunk_positions(b, hkv, s))
-    return _launch_simt(q, k_cache, v_cache, length, dims)
+    which, size = launch_plan(q.dtype, *dims, device=q.device, tiles=tiles)
+    if which == "tc":
+        return _launch_tc(q, k_cache, v_cache, length, dims, size)
+    return _launch_simt(q, k_cache, v_cache, length, dims, size)
+
+
+def launch_plan(dtype: torch.dtype, b: int, s: int, h: int, hkv: int,
+                hd: int, *, device=None, tiles: Optional[dict] = None):
+    """(route, chunk) on the tensor cores or (route, splits) on SIMT for a
+    call of these dims: ``tiles`` (default ``tiles_for(..., device)``),
+    where 0 takes ``chunk_positions`` / ``num_splits``."""
+    which = route(dtype, hd, h // hkv)
+    if tiles is None:
+        tiles = tiles_for("decode_attention", device, b=b, s=s, h=h,
+                          hkv=hkv, hd=hd, tc=int(which == "tc"))
+    if which == "tc":
+        return which, tiles["chunk"] or chunk_positions(b, hkv, s)
+    return which, tiles["splits"] or num_splits(b, hkv, s)
 
 
 def _launch_tc(q, k_cache, v_cache, length, dims, chunk):
@@ -134,7 +154,7 @@ def _launch_tc(q, k_cache, v_cache, length, dims, chunk):
     return out
 
 
-def _launch_simt(q, k_cache, v_cache, length, dims):
+def _launch_simt(q, k_cache, v_cache, length, dims, splits):
     """The SIMT route: a split kernel and a combine kernel."""
     b, s, h, hkv, hd = dims
     g = h // hkv
@@ -146,7 +166,6 @@ def _launch_simt(q, k_cache, v_cache, length, dims):
     if b == 0:
         return out
     dev = q.device
-    splits = num_splits(b, hkv, s)
     m_part = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((b, hkv, splits, g, hd), dtype=torch.float32,

@@ -6,7 +6,9 @@ CUDA source.  The float constants are rounded to float32 here exactly
 as ``tree_math`` rounds them, and the phase key travels as a uint32.
 Outputs are allocated with ``torch.empty`` unless ``out=`` hands in
 five tensors to write (a caller filling slices of larger buffers); the
-kernel launches on the current stream and does not synchronise.
+kernel launches on the current stream and does not synchronise.  The
+grid, ``grid_waves`` waves of resident blocks, comes from
+``autotune.tiles_for`` or from ``tiles=`` (a search's candidate).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import build
+from ..autotune import tiles_for
 from .ref import f32, phase_key
 
 _IN_TYPES = (torch.int32, torch.int32, torch.int32, torch.float32, torch.int32)
@@ -40,7 +43,8 @@ def edra_tree_cuda(offset: torch.Tensor, n: torch.Tensor,
                    event_key: torch.Tensor, *, levels: int, theta: float,
                    delta_avg: float, seed: int = 0, fill_rate: float = 0.0,
                    e_cap: float = 2.0,
-                   out: Optional[Sequence[torch.Tensor]] = None):
+                   out: Optional[Sequence[torch.Tensor]] = None,
+                   tiles: Optional[dict] = None):
     """(P,) int32 offsets/ring sizes/reporters/event keys (uint32 bits,
     every n >= 1) + (P,) f32 detection times -> (ack f32, ttl i32,
     depth i32, parent i32 holding uint32 bits, sends i32), each (P,)."""
@@ -61,12 +65,14 @@ def edra_tree_cuda(offset: torch.Tensor, n: torch.Tensor,
         _check("outputs", out, _OUT_TYPES, p, dev)
     if not p:
         return out
+    if tiles is None:
+        tiles = tiles_for("edra_tree", dev, p=p)
     variant = 0 if theta <= 0.0 else 2 if fill_rate > 0.0 else 1
     build.launch(
         "edra_tree_launch", *(t.data_ptr() for t in ins),
         *(t.data_ptr() for t in out), p, levels, variant, f32(theta),
         f32(1.0 / theta) if theta > 0.0 else 0.0, f32(fill_rate * theta),
         f32(e_cap - 1.0), f32(1.0 / fill_rate) if fill_rate > 0.0 else 0.0,
-        f32(delta_avg), phase_key(seed),
+        f32(delta_avg), phase_key(seed), tiles["grid_waves"],
         torch.cuda.current_stream(dev).cuda_stream)
     return out

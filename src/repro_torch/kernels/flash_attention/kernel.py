@@ -1,3 +1,4 @@
+# repro-lint: allow(RL004) -- one launch shape (BQ), compiled in
 """Launchers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
 and ``csrc/flash_attention_tc.cu``, the forward, K5; and
 ``csrc/flash_attention_bwd.cu``, its gradient, K5b).
@@ -25,7 +26,10 @@ anything else raises
 ``ValueError`` before a launch.  The design notes sit in the
 CUDA sources.  Outputs and scratch are allocated here with
 ``torch.empty``; the kernels launch on the current stream and do not
-synchronise.
+synchronise.  K5 has no run-time launch shape: the wgmma warpgroup and
+the TMA boxes fix its block of query rows, ``BQ``, at 64 on both routes,
+autotune's one ``flash_attention`` candidate, so there is nothing to
+resolve through ``autotune.tiles_for`` (hence the RL004 pragma above).
 """
 from __future__ import annotations
 

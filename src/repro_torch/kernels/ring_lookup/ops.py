@@ -6,8 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import (k7_route, ring_lookup64_cuda, ring_lookup_bucketed_cuda,
-                     ring_lookup_cuda)
+from .kernel import (k7_route_for, ring_lookup64_cuda,
+                     ring_lookup_bucketed_cuda, ring_lookup_cuda)
 from .ref import ring_lookup64_ref, ring_lookup_bucketed_ref, ring_lookup_ref
 
 
@@ -18,13 +18,13 @@ def ring_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     table before any device work.  A signed int32 table is not a
     supported input: the words are compared as uint32.
     ``ring_lookup.one_level_launches`` / ``.sampled_launches`` count the
-    launches of each route: ``kernel.k7_route`` picks it here, and the
+    launches of each route: ``kernel.k7_route_for`` picks it here, and the
     launcher is handed it."""
     if table.numel() == 0:
         raise LookupError("empty routing table")
     if keys.device.type == "cpu":
         return ring_lookup_ref(keys, table)
-    route = k7_route(keys.numel())
+    route = k7_route_for(keys, table)
     out = ring_lookup_cuda(keys, table, route)
     if out.numel():
         ring_lookup.launches += 1

@@ -1,3 +1,4 @@
+# repro-lint: allow(RL004) -- one launch shape (CHANNELS), compiled in
 """Launchers of the CUDA selective-scan kernels (``csrc/ssm_scan.cu``, K6,
 and ``csrc/ssm_scan_bwd.cu``, its gradient, K6b).
 
@@ -10,7 +11,11 @@ of y and h_last, and returns the inputs' gradients in two launches (the
 scan, in clusters of ``BWD_CLUSTER`` blocks, then the sums across
 clusters).  The design notes sit in the CUDA sources.  Outputs and
 scratch are allocated here with ``torch.empty``; the kernels launch on
-the current stream and do not synchronise.
+the current stream and do not synchronise.  K6 has no run-time launch
+shape: the shared-memory tile layout of ``csrc/ssm_scan.cu`` fixes its
+block of channels, ``CHANNELS``, autotune's one ``ssm_scan`` candidate,
+so there is nothing to resolve through ``autotune.tiles_for`` (hence the
+RL004 pragma above).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_STATE = 32          # the kernel's shared-memory tiles hold 32 states
+CHANNELS = 32           # K6's channels a block (kChannels in csrc/ssm_scan.cu)
 # the tile of positions of K6 and K6b (kTile in csrc/ssm_scan.cu and
 # csrc/ssm_scan_bwd.cu): K6 writes the state at each tile's start, K6b
 # starts each tile from it

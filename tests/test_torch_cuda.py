@@ -1427,3 +1427,59 @@ def test_launchers_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssm_kernel.ssm_scan_cuda(*(torch.zeros(t.shape)
                                    for t in (x, x, bc, bc, a, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dims", [
+    ("ring_lookup", {"q": 4096, "n": 12_345, "words": 2}),
+    ("ring_lookup", {"q": 4096, "n": 12_345, "words": 1}),
+    ("ring_lookup_bucketed", {"q": 32, "b": 1 << 15}),
+    ("edra_tree", {"p": 1 << 16}),
+    ("decode_attention", {"b": 4, "s": 512, "h": 16, "hkv": 2, "hd": 128,
+                          "tc": 1}),
+    ("decode_attention", {"b": 4, "s": 512, "h": 16, "hkv": 2, "hd": 128,
+                          "tc": 0}),
+])
+def test_autotune_search_on_the_card(cuda, tmp_path, monkeypatch, kernel,
+                                     dims):
+    """A search launches every candidate, holds it against the default's
+    output and the plain version (``AutotuneFault`` otherwise), times it
+    on the device, persists the winner where the variable points, and
+    ``tiles_for`` then returns it; with the variable unset the card takes
+    the defaults."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune.json"))
+    autotune.reset()
+    rec = {}
+    try:
+        got = autotune.autotune_kernel(kernel, dims, device=cuda, record=rec)
+        cands = autotune.candidates_for(kernel, dims)
+        assert [c["tiles"] for c in rec["candidates"]] == cands
+        assert all(c["ms"] > 0 and c["spread_ms"] >= 0
+                   for c in rec["candidates"])
+        assert got in cands and rec["winner"] == got
+        assert autotune.tiles_for(kernel, cuda, **dims) == got
+        assert autotune.status_label() == "searched"
+        monkeypatch.delenv(autotune.CACHE_ENV)
+        autotune.reset()
+        assert autotune.tiles_for(kernel, cuda, **dims) \
+            == autotune.DEFAULTS[kernel]
+    finally:
+        autotune.reset()
+
+
+@pytest.mark.cuda
+def test_device_readings_time_the_device_not_the_host(cuda):
+    """Calls queued behind the spin run back to back: a call that spends
+    0.5 ms on the host before it launches a one-element add reads the
+    add's few µs, not the host's 0.5 ms."""
+    import time
+    from repro_torch.kernels import autotune
+    x = torch.zeros(1, device=cuda)
+
+    def call():
+        time.sleep(5e-4)
+        x.add_(1.0)
+    readings = autotune.device_readings(call, reps=5)
+    assert len(readings) == 5 and all(r > 0 for r in readings)
+    assert max(readings) < 0.05                  # ms, against 0.5 of host

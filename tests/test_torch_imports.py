@@ -43,8 +43,8 @@ print(" ".join(names))
 print(len(names))
 """
 
-# the modules of the tensor-parallel and dht_cluster slice, and of the
-# training slice
+# the modules of the tensor-parallel and dht_cluster slice, of the
+# training slice, and of the tooling slice
 NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.launch.mesh", "repro_torch.models.tp",
                "repro_torch.runtime.elastic", "repro_torch.sharding.specs",
@@ -54,7 +54,11 @@ NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.runtime.failover", "repro_torch.train.step",
                "repro_torch.train.trainer", "repro_torch.train_lm",
                "repro_torch.models.moe_ep", "repro_torch.sharding.collectives",
-               "repro_torch.models.remat")
+               "repro_torch.models.remat",
+               "repro_torch.kernels.autotune", "repro_torch.analysis.lint",
+               "repro_torch.analysis.baseline",
+               "repro_torch.analysis.__main__",
+               "repro_torch.analysis.sanitize")
 
 
 def _env(**extra):

@@ -258,6 +258,6 @@ def test_twin_reads_the_source():
             "return h < kh || (h == kh && row_lo[j] < kl);",
             "count = min(count, kRowWidth - 1);",
             "constexpr int64_t kK2WarpKeys = 4096;",
-            "if (q <= kK2WarpKeys) {",
+            "if (q <= warp_keys) {",
             "const bool lt = j < live && id64(row_hi[j], row_lo[j]) < key;"):
         assert line in CU, line
