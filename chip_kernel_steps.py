@@ -693,7 +693,7 @@ def k6(dev, gen):
         x, B, C, D = (t.bfloat16() for t in (x, B, C, D))
         args = (x, dt, B, C, A, D, h0)
         wy, wh = ssm_scan_ref(*args)
-        b6, by6 = smoke.k6_bound(*args)
+        b6, by6, _ = smoke.k6_bound(*args)
         row = {"L": l, "exponentials": l * din * n, "bound_ms": b6,
                "bound_by": by6, "sfu_ms": smoke.sfu_ms(l * din * n)}
         for name, lib in libs.items():
@@ -1290,7 +1290,7 @@ def k6b(dev, gen):
             fn = lambda i: sk.ssm_scan_bwd_cuda(*args, states)  # noqa: E731
         else:
             fn = lambda i: sk.ssm_scan_bwd_cuda(*args)  # noqa: E731
-        b6b, by6b = smoke.k6b_bound(*args)
+        b6b, by6b, _ = smoke.k6b_bound(*args)
         row = {"shape": [bb, l, din, n], "design": which,
                "k6_forward_device_ms": device_ms(
                    lambda i: sk.ssm_scan_cuda(*args[:7])),

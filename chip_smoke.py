@@ -282,6 +282,29 @@ gitignored ``build/`` and runs, in order, printing one JSON line each:
            bit for bit, the last logged loss below the first, K5 and K5b
            12 tensor-core launches a step run (70), and the checkpoint
            directory removed at the end;
+  launch   the launch group (``launch/{presets,dryrun,hlo_cost}.py``), on
+           the launch-shape defaults: (1) the dry run of every cell of
+           ``all_cells()`` on both production meshes, and the skip
+           records, in a child process that sees no card
+           (``CUDA_VISIBLE_DEVICES`` empty; ``LAUNCH_JOBS`` workers trace
+           the cells on ``meta``), a line a cell with its per-device peak,
+           whether it fits in 80 GB, FLOPs, bytes, collective bytes and
+           host seconds; gate: every cell ``ok``; (2) qwen2.5-3b at full
+           size, a train step (the train phase's B 8 x S 1024), a
+           whole-prompt prefill of 1024 tokens into a one-row cache of
+           2048 and a decode step of 32 slots each at its own position
+           in 2048, each counted by ``hlo_cost.CostCounter`` on the card
+           and on ``meta``; gates: equal matmul FLOPs, HBM bytes and
+           kernel charges, and the meta temporaries within 25% of the
+           card's ``max_memory_allocated`` less what was allocated before
+           the step (its arguments); printed: each step's device ms
+           (CUDA events) beside its roofline ms, max(FLOPs / bf16 peak,
+           bytes / HBM rate) from ``HARDWARE``, its mfu and its share of
+           the roofline; (3) every K3/K5/K5b/K6/K6b case the kernels phase
+           bounds, rebuilt on ``meta`` and run through its public wrapper:
+           gate: the charge's bytes and operations equal to the bound's
+           (K3's charge is the caches' whole capacity: held against the
+           bound's work at every position);
   autotune the launch shapes searched on the card
            (``kernels/autotune.py``; the whole run points
            ``REPRO_TORCH_AUTOTUNE_CACHE`` at a fresh temporary file, so
@@ -381,6 +404,16 @@ K3_LENGTHS = {(8, 1500, "bfloat16", WHISPER_HEADS): (1500, 1500),
 K3_MAIN = (16, 2048, "bfloat16", QWEN_HEADS)   # the largest decode bucket
 K3_TOL = {"bfloat16": BF16_ATOL, "float16": BF16_ATOL, "float32": 2e-5}
 K2_ROUND_KEYS = 32                 # the fused decode round's full house
+# launch: qwen2.5-3b's three steps counted on the card and on meta at the
+# serve phases' shapes (the train phase's are TRAIN_BATCH x TRAIN_SEQ): a
+# whole-prompt admit of LAUNCH_PROMPT tokens into a one-row cache, and a
+# fused round's decode step over LAUNCH_SLOTS slots, each at its own
+# position, of LAUNCH_MAX_LEN; the meta temporaries within LAUNCH_TEMP_REL
+# of the card's peak less the step's arguments; the dry run's cells traced
+# by LAUNCH_JOBS worker processes
+LAUNCH_PROMPT, LAUNCH_SLOTS, LAUNCH_MAX_LEN = 1024, 32, 2048
+LAUNCH_TEMP_REL = 0.25
+LAUNCH_JOBS = min(8, os.cpu_count() or 1)
 AUTOTUNE_BUDGET_S = 90.0           # autotune_all's wall-time budget
 AUTOTUNE_ROUND = 16                # the tuned round: 16 sessions, 16 slots
 K3_LOGIT_MOVE = 0.25               # most a K3 chunk may move the round's logits
@@ -502,10 +535,8 @@ K6_SHAPE = (1, 1024, 8192, 16)     # (Bb, L, Din, N): one falcon-mamba-7b admit
 K6_ATOL = 1e-4                     # repro's f32 tolerance (test_kernels.py)
 K6_Y_REL = 1e-2                    # bf16 y: of max |y|
 K6_STATES_REL = 1e-5               # K6's tile start states: of max |h|
-# f32 operations K6 does per (position, channel, state): dt*A, exp, da*h,
-# (dt*x)*B, +, h*C, the reduction's add; and per (position, channel):
-# dt*x, D*x, +
-K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
+# K6's and K6b's operation counts (K6_OPS_*, K6B_OPS_*) are in
+# kernels/ssm_scan/ops.py, beside ssm_scan_work and ssm_scan_bwd_work
 # K6b (the scan's backward) at falcon-mamba-7b's training shape (train_ssm:
 # B 8 x S 1024), x, B, C, D and dy in bf16, dt and A in f32, without and
 # with h0 and dh_last; each gradient within its K6B_REL of its max |ref|:
@@ -515,11 +546,6 @@ K6_OPS_STATE, K6_OPS_CHANNEL = 7, 3
 K6B_SHAPE = (8, 1024, 8192, 16)
 K6B_REL = {"dx": 1e-2, "dB": 1e-2, "dC": 1e-2, "dD": 1e-2,
            "ddt": 1e-4, "dA": 1e-4, "dh0": 1e-4}
-# f32 operations K6b must do per (position, channel, state): a_t, g_t
-# (C dy + q), q = a g, g dt, dx's and dB's products, ddt's (x B + A a h),
-# dA's, dC's dy h and the state h = a h + dt x B; and per (position,
-# channel): dt x, D dy, dy x
-K6B_OPS_STATE, K6B_OPS_CHANNEL = 16, 3
 SFU_PER_CLOCK = 16                 # exponentials a clock on each SM (Hopper)
 SSM_PROMPTS = (128, 256, 512, 1024)   # whole multiples of ssm_chunk 256
 K7_KEYS = 1 << 20
@@ -769,6 +795,15 @@ def bound(nbytes: float, nops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def work_bound(work):
+    """The bound of a kernel's ``*_work`` count (its ``ops.py``): bytes
+    over the memory rate, matmul FLOPs and other operations over the peak
+    of the work's type (bf16 and fp16 on the tensor cores, f32 outside
+    them)."""
+    return bound(work["bytes"], work["matmul_flops"] + work["ops"],
+                 FP32_FLOPS if work["type"] == "float32" else BF16_FLOPS)
+
+
 def k2_bound(keys, occ):
     """K2's bound for uint64 ``keys`` on a directory with row occupancies
     ``occ``: each key's two words in and two words out (16 B), and each
@@ -998,9 +1033,12 @@ def main() -> int:
             :, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         valid = int(length.sum())
-        bb, by3 = bound(valid * hkv3 * hd3 * size * 2 + 2 * b * h3 * hd3 * size
-                        + 4 * b, 4 * valid * h3 * hd3,
-                        FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        # K/V of the valid positions read once, q, the lengths and the
+        # output once; q . k and p . v over those positions
+        w3 = dict(da_ops.decode_attention_work(q[0], k[0], v[0], length,
+                                               positions=valid),
+                  positions=valid)
+        bb, by3 = work_bound(w3)
         k3_rows.append({
             "B": b, "S": s, "H": h3, "Hkv": hkv3, "hd": hd3,
             "dtype": dtype_name, "kernel_route": route3,
@@ -1012,7 +1050,7 @@ def main() -> int:
                                            attn_mask=mask, enable_gqa=True)),
             "plain_ms": cuda_ms(lambda i: decode_attention_ref(
                 q[i % copies], k[i % copies], v[i % copies], length)),
-            "bound_ms": bb, "bound_by": by3})
+            "bound_ms": bb, "bound_by": by3, "work": w3})
         del q, k, v, kt, vt
     torch.cuda.empty_cache()
     summary = ("kernel_route", "max_abs_err", "tolerance", "ms", "plain_ms",
@@ -1084,12 +1122,10 @@ def main() -> int:
                                  f"err {err5}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
         # q, k and v read once and the output written once; q . k and p . v
-        b5, by5 = bound(q.element_size() * (q.numel() + k.numel() + v.numel()
-                                            + got5.numel()),
-                        2 * b * h5 * (hd5 + dv5) * pairs,
-                        FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        # over the pairs the mask lets through
+        w5 = fa_ops.flash_attention_work(q, k, v, causal=causal)
+        b5, by5 = work_bound(w5)
         k5_rows.append({
             "B": b, "Sq": sq, "Sk": sk, "H": h5, "Hkv": hkv5, "hd": hd5,
             "dv": dv5, "causal": causal, "dtype": dtype_name, "kernel_route": route5,
@@ -1100,7 +1136,7 @@ def main() -> int:
                                            enable_gqa=True)),
             "plain_ms": cuda_ms(lambda i: flash_attention_ref(
                 q, k, v, causal=causal)),
-            "bound_ms": b5, "bound_by": by5})
+            "bound_ms": b5, "bound_by": by5, "work": w5})
         del q, k, v, qt, kt, vt, got5, plain5
     main5 = k5_rows[0]
     results["K5"] = {
@@ -1178,15 +1214,11 @@ def main() -> int:
                                  f"{hd5} / {dv5}: {errs}, or two calls "
                                  f"differ")
         del again
-        pairs = sq * (sq + 1) // 2 if causal else sq * sk
         # q, k, v, o, dO and lse read once (v, o and dO at the v head dim),
         # dq, dk, dv written once; the five products over the causal pairs:
         # q K^T, dS^T q and dS K at q . k's width, dO V^T and P^T dO at v's
-        size = q.element_size()
-        b5b, by5b = bound(size * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                                  + 2 * o.numel()) + 4 * lse.numel(),
-                          2 * b * h5 * pairs * (3 * hd5 + 2 * dv5),
-                          FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        w5b = fa_ops.flash_attention_bwd_work(q, k, v, causal=causal)
+        b5b, by5b = work_bound(w5b)
         k5b_rows.append({
             "B": b, "Sq": sq, "Sk": sk, "H": h5, "Hkv": hkv5, "hd": hd5,
             "dv": dv5, "causal": causal,
@@ -1203,7 +1235,7 @@ def main() -> int:
                 causal=causal),
             "plain_ms": cuda_ms(lambda i: flash_attention_bwd_ref(
                 q, k, v, o, lse, do, causal=causal), iters=10, warmup=1),
-            "bound_ms": b5b, "bound_by": by5b})
+            "bound_ms": b5b, "bound_by": by5b, "work": w5b})
         del q, k, v, do, o, lse, ro, rlse, leaves, got5b, plain5b
         torch.cuda.empty_cache()
     main5b = k5b_rows[0]
@@ -1434,6 +1466,13 @@ def main() -> int:
         results[key]["max_err"] = results[key]["max_abs_err"]
     if "launches" not in results["K6b"]:
         raise AssertionError("K6b never ran on a training path")
+    launch_phase(dev, [("K3", r) for r in k3_rows]
+                 + [("K5", r) for r in k5_rows]
+                 + [("K5b", r) for r in k5b_rows]
+                 + [("K6", k6_f32), ("K6", results["K6"]),
+                    ("K6b", results["K6b"]),
+                    ("K6b", {**results["K6b"],
+                             **results["K6b"]["with_state"]})])
     autotune_phase(dev)
     emit({"kernels": [results[k] for k in ("K1", "K2", "K3", "K4", "K5",
                                            "K5b", "K6", "K6b", "K7")]})
@@ -2315,33 +2354,39 @@ def k6_check(dev, x, dt, B, C, A, D, h0=None) -> dict:
                              f"{states_err}")
     bb, l, din = x.shape
     n = A.shape[1]
-    b6, by6 = k6_bound(x, dt, B, C, A, D, h0)
+    b6, by6, w6 = k6_bound(x, dt, B, C, A, D, h0)
     return {"shape": f"Bb={bb}, L={l}, Din={din}, N={n}, x {x.dtype}",
+            "dims": [bb, l, din, n], "dtypes": _dtype_names(
+                x, dt, B, C, A, D, h0), "work": w6,
             "max_abs_err": max(err_y, err_h), "y_max_abs_err": err_y,
             "h_max_abs_err": err_h, "y_tolerance": y_tol,
             "h_tolerance": K6_ATOL, "y_max_abs": y_max,
             "with_states_bit_equal": states_equal,
             "states_rel_err": states_err, "states_tolerance": K6_STATES_REL,
-            "exponentials": bb * l * din * n,
+            "exponentials": w6["exponentials"],
             "ms": cuda_ms(lambda i: ssm_ops.ssm_scan(x, dt, B, C, A, D, h0)),
             "ms_with_states": cuda_ms(lambda i: ssm_kernel.ssm_scan_cuda(
                 x, dt, B, C, A, D, h0, states=True)),
             "plain_ms": cuda_ms(lambda i: ssm_scan_ref(x, dt, B, C, A, D, h0),
                                 iters=3, warmup=1),
             "library_ms": None, "bound_ms": b6, "bound_by": by6,
-            "sfu_ms": sfu_ms(bb * l * din * n)}
+            "sfu_ms": sfu_ms(w6["exponentials"])}
+
+
+def _dtype_names(*tensors) -> list:
+    """Each tensor's dtype name (None for None): how the launch phase
+    rebuilds a case's inputs on ``meta``."""
+    return [None if t is None else str(t.dtype).replace("torch.", "")
+            for t in tensors]
 
 
 def k6_bound(x, dt, B, C, A, D, h0=None):
-    """K6's bound on these inputs: each input read once, y (x's type) and
-    h_last (f32) written once; K6_OPS_* f32 operations."""
-    bb, l, din = x.shape
-    n = A.shape[1]
-    ins = (x, dt, B, C, A, D) + (() if h0 is None else (h0,))
-    nbytes = sum(t.numel() * t.element_size() for t in ins) \
-        + x.numel() * x.element_size() + bb * din * n * 4
-    ops = bb * l * din * (K6_OPS_STATE * n + K6_OPS_CHANNEL)
-    return bound(nbytes, ops, FP32_FLOPS)
+    """K6's bound on these inputs (``ssm_scan_work``: each input read
+    once, y (x's type) and h_last (f32) written once; ``K6_OPS_*`` f32
+    operations) and that work."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    work = ssm_ops.ssm_scan_work(x, dt, B, C, A, D, h0)
+    return work_bound(work) + (work,)
 
 
 def sfu_ms(exponentials: int) -> float:
@@ -2417,8 +2462,9 @@ def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
                 or not equal:
             raise AssertionError(f"K6b at {shape} ({key}): {errs}, bit-equal "
                                  f"{equal}")
-        b6b, by6b = k6b_bound(*args)
+        b6b, by6b, w6b = k6b_bound(*args)
         cases[key] = {
+            "dtypes": _dtype_names(*args), "work": w6b,
             "max_abs_err": abs_err, "rel_err": errs,
             "max_rel_err": max(errs.values()), "bit_equal": equal,
             "ms": cuda_ms(lambda i: ssm_kernel.ssm_scan_bwd_cuda(*args, hs),
@@ -2441,6 +2487,7 @@ def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
             "shape": f"Bb={bb}, L={l}, Din={din}, N={n}, x, B, C, D, dy "
                      "bf16, no h0 or dh_last (falcon-mamba-7b training, a "
                      "layer)",
+            "dims": [bb, l, din, n],
             "tolerance": K6B_REL,
             "tolerance_of": "max_rel_err (max |d| / max |ref| per gradient)",
             **cases["no_state"],
@@ -2453,19 +2500,15 @@ def k6b_check(dev, gen, shape=K6B_SHAPE) -> dict:
 
 
 def k6b_bound(x, dt, B, C, A, D, h0, dy, dh):
-    """K6b's bound on these inputs: each input read once and each gradient
-    written once; K6B_OPS_* f32 operations; and its exponentials, one a
-    (position, channel, state), on the SFUs (``sfu_ms``), counted as
-    operations."""
-    bb, l, din = x.shape
-    n = A.shape[1]
-    ins = [t for t in (x, dt, B, C, A, D, h0, dy, dh) if t is not None]
-    outs = [x, dt, B, C, A, D] + ([] if h0 is None else [h0])
-    nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
-    ops = bb * l * din * (K6B_OPS_STATE * n + K6B_OPS_CHANNEL)
-    ms, by = bound(nbytes, ops, FP32_FLOPS)
-    sfu = sfu_ms(bb * l * din * n)
-    return (sfu, "operations") if sfu > ms else (ms, by)
+    """K6b's bound on these inputs (``ssm_scan_bwd_work``: each input read
+    once and each gradient written once; ``K6B_OPS_*`` f32 operations; and
+    its exponentials, one a (position, channel, state), on the SFUs
+    (``sfu_ms``), counted as operations) and that work."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    work = ssm_ops.ssm_scan_bwd_work(x, dt, B, C, A, D, h0, dy, dh)
+    ms, by = work_bound(work)
+    sfu = sfu_ms(work["exponentials"])
+    return ((sfu, "operations") if sfu > ms else (ms, by)) + (work,)
 
 
 def serve_ssm_phase(dev, rng) -> dict:
@@ -2596,7 +2639,7 @@ def serve_ssm_phase(dev, rng) -> dict:
             "launches": launches["K6"],
             **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "library_ms", "bound_ms", "bound_by",
-                                        "sfu_ms")}}
+                                        "sfu_ms", "dims", "dtypes", "work")}}
 
 
 def k4_inputs(dev, seed: int):
@@ -4384,6 +4427,300 @@ def train_lm_phase(dev) -> dict:
           "history": hist, "wall_s": wall, "checkpoint_save_s": save_s,
           "launches": counts, "checkpoint_dir_removed": True})
     return counts
+
+
+def launch_dryrun_start(out: str):
+    """Start the dry run of every cell (``python -m
+    repro_torch.launch.dryrun --all --mesh both --out out``) in a child
+    process that sees no card (``CUDA_VISIBLE_DEVICES`` empty), its output
+    to ``out`` + ``.log``, in a session of its own so that it and its
+    ``LAUNCH_JOBS`` spawned workers can be stopped together."""
+    import subprocess
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    with open(out + ".log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--jobs", str(LAUNCH_JOBS), "--out", out],
+            env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+
+def launch_dryrun_wait(proc, out: str) -> list:
+    """The dry run's records, skips included, once its child has exited
+    (within 900 s)."""
+    proc.wait(timeout=900)
+    if proc.returncode:
+        with open(out + ".log") as log:
+            raise AssertionError(f"launch: the dry run exited "
+                                 f"{proc.returncode}: {log.read()[-3000:]}")
+    with open(out) as f:
+        return [json.loads(line) for line in f]
+
+
+def launch_dryrun_stop(proc) -> None:
+    """Kill the dry run's session where its child still runs."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def launch_step_inputs(model, mode: str, dev):
+    """qwen2.5-3b's step of ``mode`` at the shape the train, the
+    serve_whole_prompt and the serve phases run, on ``dev`` (``cuda`` or
+    ``meta``): (the step, its arguments).  On ``meta`` the parameters are
+    ``abstract_params`` and every input empty."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = model.cfg
+    meta = dev.type == "meta"
+    params = model.abstract_params() if meta else model.init(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    gen = None if meta else torch.Generator(device=dev).manual_seed(SEED)
+
+    def tokens(shape, lo=0, hi=cfg.vocab):
+        if meta:
+            return torch.empty(shape, dtype=torch.int32, device=dev)
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    if mode == "train":
+        opt = adamw.OptConfig(moment_dtype=cfg.opt_dtype)
+        state = adamw.init_state(params, opt)
+        batch = {"tokens": tokens((TRAIN_BATCH, TRAIN_SEQ)),
+                 "labels": tokens((TRAIN_BATCH, TRAIN_SEQ))}
+        return (make_train_step(model, TrainConfig(opt=opt)),
+                (params, state, batch))
+    if mode == "prefill":
+        return (lambda p, b, c: model.prefill(p, b, c),
+                (params, {"tokens": tokens((1, LAUNCH_PROMPT))},
+                 model.init_cache(1, LAUNCH_MAX_LEN, device=dev)))
+    # a fused round's decode step: every slot at its own position
+    return (lambda p, c, t, i: model.decode_step(p, c, t, i),
+            (params, model.init_cache(LAUNCH_SLOTS, LAUNCH_MAX_LEN,
+                                      device=dev),
+             tokens((LAUNCH_SLOTS, 1)),
+             tokens((LAUNCH_SLOTS,), 128, LAUNCH_MAX_LEN - 1)))
+
+
+def launch_charges(cases) -> list:
+    """Each bounded K3/K5/K5b/K6/K6b case of the kernels phase rebuilt on
+    ``meta`` and run through its public wrapper under a ``CostCounter``:
+    the charge's bytes, matmul FLOPs, other operations (and
+    exponentials) against the work its bound used.  K3's charge is the
+    caches' whole capacity, so it is held against the bound's work at
+    every position (the bound's own bytes and FLOPs are linear in the
+    positions it read)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.launch.hlo_cost import CostCounter
+    meta = torch.device("meta")
+
+    def empty(shape, dtype, grad=False):
+        return torch.empty(shape, dtype=getattr(torch, dtype), device=meta,
+                           requires_grad=grad)
+    keys = ("bytes", "matmul_flops", "ops", "exponentials")
+    rows = []
+    for kernel, row in cases:
+        want = {k: row["work"][k] for k in keys if k in row["work"]}
+        with CostCounter() as counter:
+            if kernel == "K3":
+                b, s, h, hkv, hd = (row[k] for k in ("B", "S", "H", "Hkv",
+                                                     "hd"))
+                size = getattr(torch, row["dtype"]).itemsize
+                extra = b * s - row["work"]["positions"]
+                want["bytes"] += 2 * extra * hkv * hd * size
+                want["matmul_flops"] += 4 * extra * h * hd
+                da_ops.decode_attention(empty((b, h, hd), row["dtype"]),
+                                        empty((b, s, hkv, hd), row["dtype"]),
+                                        empty((b, s, hkv, hd), row["dtype"]),
+                                        empty((b,), "int32"))
+            elif kernel in ("K5", "K5b"):
+                b, sq, sk, h, hkv, hd, dv = (row[k] for k in (
+                    "B", "Sq", "Sk", "H", "Hkv", "hd", "dv"))
+                grad = kernel == "K5b"
+                q, k, v = (empty(shape, row["dtype"], grad) for shape in (
+                    (b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, dv)))
+                if grad:
+                    o = fa_ops.FlashAttentionFn.apply(q, k, v, row["causal"])
+                    torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
+                else:
+                    fa_ops.flash_attention(q, k, v, causal=row["causal"])
+            else:
+                bb, l, din, n = row["dims"]
+                shapes = ((bb, l, din), (bb, l, din), (bb, l, n), (bb, l, n),
+                          (din, n), (din,), (bb, din, n), (bb, l, din),
+                          (bb, din, n))
+                grad = kernel == "K6b"
+                ts = [None if dt is None else empty(shape, dt, grad and i < 7)
+                      for i, (shape, dt) in enumerate(zip(shapes,
+                                                          row["dtypes"]))]
+                y, h_last = ssm_ops.SsmScanFn.apply(*ts[:7])
+                if grad:
+                    outs = [(y, ts[7])] + ([(h_last, ts[8])]
+                                           if ts[8] is not None else [])
+                    torch.autograd.grad([o for o, _ in outs],
+                                        [t for t in ts[:7] if t is not None],
+                                        [g for _, g in outs])
+        got = {k: counter.kernels[kernel].get(k) for k in want}
+        if counter.kernels[kernel]["calls"] != 1 or got != want:
+            raise AssertionError(f"launch: {kernel}'s charge {got} on meta is "
+                                 f"not its bound's work {want} "
+                                 f"({row.get('shape', row)})")
+        rows.append({"kernel": kernel, **want})
+    return rows
+
+
+def launch_phase(dev, cases) -> None:
+    """The launch group (``launch/{presets,dryrun,hlo_cost}.py``): the dry
+    run of every cell, qwen2.5-3b's three steps counted on the card and
+    on ``meta``, the kernels' charges against their bounds, the meta
+    temporaries against the card's peak, and each step's share of its
+    roofline."""
+    from repro_torch.configs import all_cells, skipped_cells
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch.mesh import HARDWARE
+
+    # -- the dry run of every (arch x shape x mesh) cell, on no card, in a
+    # child process while this one counts on the card and on meta; the
+    # steps are timed after it, on a quiet host -------------------------
+    with tempfile.TemporaryDirectory(prefix="repro-torch-dryrun-") as tmp:
+        out = os.path.join(tmp, "dryrun.jsonl")
+        t0 = time.perf_counter()
+        proc = launch_dryrun_start(out)
+        try:
+            steps = launch_qwen_counts(dev)
+            charges = launch_charges(cases)
+            recs = launch_dryrun_wait(proc, out)
+        finally:
+            launch_dryrun_stop(proc)
+        dry_s = time.perf_counter() - t0
+    launch_qwen_times(dev, steps)
+    cells = [r for r in recs if r.get("ok") is not None]
+    skips = [r for r in recs if r.get("ok") is None]
+    for r in cells:
+        print(f"launch_cell {r['arch']} {r['shape']} {r['mesh']} "
+              + (f"peak/dev {r['peak_memory_per_device']} fits {r['fits']} "
+                 f"flops/dev {r['matmul_flops_per_device']} bytes/dev "
+                 f"{r['hbm_bytes_per_device']} coll/dev "
+                 f"{r['collective_bytes_per_device']} ({r['per_device']}) "
+                 f"host_s {r['wall_s']}" if r["ok"] else
+                 f"FAILED {r['error']}"), flush=True)
+    want = sorted((a, s, m) for a, s in all_cells()
+                  for m in ("16x16", "2x16x16"))
+    if sorted((r["arch"], r["shape"], r.get("mesh")) for r in cells) != want \
+            or not all(r["ok"] for r in cells) \
+            or sorted((r["arch"], r["shape"]) for r in skips) != sorted(
+                (a, s) for a in ARCH_IDS for s in skipped_cells(a)):
+        raise AssertionError("launch: a dry-run cell failed or is missing: "
+                             + "; ".join(f"{r['arch']} {r['shape']} "
+                                         f"{r.get('mesh')}: {r.get('error')}"
+                                         for r in cells if not r["ok"]))
+    emit({"phase": "launch", "nvidia_smi": _smi(),
+          "hardware": HARDWARE, "dryrun_cells": len(cells),
+          "dryrun_skips": len(skips), "dryrun_s": dry_s,
+          "dryrun_jobs": LAUNCH_JOBS,
+          "dryrun_trace_s_max": max(r["trace_s"] for r in cells),
+          "not_fitting": sorted(f"{r['arch']} {r['shape']} {r['mesh']}"
+                                for r in cells if not r["fits"]),
+          "qwen_steps": steps, "charges_equal_to_bounds": len(charges),
+          "charges": charges})
+
+
+def launch_qwen_counts(dev) -> dict:
+    """qwen2.5-3b at full size: a train step, a whole-prompt prefill and a
+    fused round's decode step, each counted under a ``CostCounter`` on the
+    card (through the kernels) and on ``meta`` (through their meta
+    routes), with the card's peak memory.  Gates: equal matmul FLOPs, HBM
+    bytes and kernel charges; the meta temporaries within
+    ``LAUNCH_TEMP_REL`` of the card's peak less what was allocated before
+    the step (its arguments).  Returns each step's counts and memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.models import Model
+    model = Model(get_config("qwen2.5-3b"))
+    steps = {}
+    for mode in ("train", "prefill", "decode"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn, args = launch_step_inputs(model, mode, dev)
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in _tree_list(args))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with CostCounter(args) as counter:
+            fn(*args)
+        torch.cuda.synchronize()
+        card_temp = torch.cuda.max_memory_allocated() - before
+        card = counter.result()
+        del fn, args
+        mfn, margs = launch_step_inputs(model, mode, torch.device("meta"))
+        with CostCounter(margs) as counter:
+            mfn(*margs)
+        on_meta = counter.result()
+        same = {k: card[k] == on_meta[k] for k in ("matmul_flops",
+                                                   "hbm_bytes", "kernels")}
+        temp_rel = abs(on_meta["temp_bytes"] - card_temp) / card_temp
+        steps[mode] = {
+            "matmul_flops": card["matmul_flops"],
+            "hbm_bytes": card["hbm_bytes"],
+            "aten": card["aten"], "kernels": card["kernels"],
+            "equal_on_meta": same,
+            "meta": {k: on_meta[k] for k in ("matmul_flops", "hbm_bytes",
+                                             "kernels")},
+            "argument_bytes": arg_bytes, "temp_bytes_meta":
+                on_meta["temp_bytes"], "temp_bytes_card": card_temp,
+            "temp_rel_diff": temp_rel}
+        if not all(same.values()):
+            raise AssertionError(f"launch: qwen2.5-3b {mode} counts differ "
+                                 f"on the card and on meta: card "
+                                 f"{ {k: card[k] for k in same} }, meta "
+                                 f"{steps[mode]['meta']}")
+        if not temp_rel <= LAUNCH_TEMP_REL:
+            raise AssertionError(f"launch: qwen2.5-3b {mode} temporaries "
+                                 f"{on_meta['temp_bytes']} on meta against "
+                                 f"{card_temp} on the card")
+    return steps
+
+
+def launch_qwen_times(dev, steps: dict) -> None:
+    """Each of ``launch_qwen_counts``' steps timed on the card (CUDA
+    events, a warm-up and 3 calls), beside its roofline time, max(matmul
+    FLOPs / bf16 peak, HBM bytes / HBM rate) from ``HARDWARE``: its mfu
+    and its share of the roofline, added to ``steps``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HARDWARE
+    from repro_torch.models import Model
+    model = Model(get_config("qwen2.5-3b"))
+    peak, rate = HARDWARE["peak_bf16_flops"], HARDWARE["hbm_bandwidth"]
+    for mode, st in steps.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn, args = launch_step_inputs(model, mode, dev)
+        ms = cuda_ms(lambda i: fn(*args), iters=3, warmup=1)
+        del fn, args
+        by_flops, by_bytes = st["matmul_flops"] / peak, st["hbm_bytes"] / rate
+        st.update({"device_ms": ms,
+                   "roofline_ms": max(by_flops, by_bytes) * 1e3,
+                   "roofline_by": "bytes" if by_bytes >= by_flops
+                   else "flops",
+                   "mfu": st["matmul_flops"] / (ms / 1e3 * peak),
+                   "roofline_share": max(by_flops, by_bytes) * 1e3 / ms})
+
+
+def _tree_list(tree) -> list:
+    """The tensors of a tree of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_list(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_list(v)]
+    return [tree] if hasattr(tree, "element_size") else []
 
 
 def autotune_phase(dev) -> None:

@@ -5,12 +5,18 @@ asks for the CPU: ``resolve_device(None)`` returns the current CUDA
 device, and raises when there is none instead of falling back to the
 host.  Kernel wrappers decide by the device of the tensors they are
 given: CPU tensors take the plain PyTorch versions, CUDA tensors launch
-the CUDA kernels (``kernels/build.py``).
+the CUDA kernels (``kernels/build.py``), and ``meta`` tensors (the dry
+run's) take a meta route that only makes the outputs' shapes and dtypes.
+
+``charge`` and ``charged`` are how a kernel, or a collective, tells a
+cost counter (``launch.hlo_cost.CostCounter``) the work it must do, on
+the card and on ``meta`` alike.
 """
 from __future__ import annotations
 
+import contextlib
 import subprocess
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -30,6 +36,37 @@ def resolve_device(device=None) -> torch.device:
                 "on the host with the kernels' plain versions")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def charge(name: str, work: Dict[str, object]) -> list:
+    """Charge ``work`` (a kernel's ``bytes``, ``matmul_flops`` and
+    ``ops``, or a collective's ``collective`` kind and ``bytes``) under
+    ``name`` to every cost counter active in the calling thread (the
+    torch dispatch modes with a ``charge`` method); returns them.  The
+    dispatch-mode stack follows the autograd engine into the card's
+    backward thread, so a backward kernel is charged there too."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    counters = [m for m in _get_current_dispatch_mode_stack()
+                if callable(getattr(m, "charge", None))]
+    for c in counters:
+        c.charge(name, work)
+    return counters
+
+
+@contextlib.contextmanager
+def charged(name: str, work: Dict[str, object]):
+    """``charge``, and hide from the counters the aten ops the block runs:
+    a kernel's launch or meta route, or a collective's sends, is counted
+    by the work it must do, not by what its wrapper allocates, copies or
+    pads."""
+    counters = charge(name, work)
+    for c in counters:
+        c.hidden += 1
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.hidden -= 1
 
 
 def bucket_budget_bytes(device) -> int:

@@ -66,6 +66,18 @@ def param_shapes(cfg: ModelConfig) -> Params:
             "ln_enc": (d,), "ln_f": (d,)}
 
 
+def param_pspecs(cfg: ModelConfig) -> Params:
+    """Logical-axis tuples of ``param_shapes``'s tree (``repro``'s
+    ``param_pspecs``)."""
+    a, m = L.attention_specs(cfg), L.mlp_specs(cfg)
+    enc = {"ln1": (None,), "attn": a, "ln2": (None,), "mlp": m}
+    dec = {"ln1": (None,), "attn": a, "ln_x": (None,), "xattn": a,
+           "ln2": (None,), "mlp": m}
+    stacked = lambda tree: _map(lambda sp: ("layers",) + tuple(sp), tree)  # noqa: E731
+    return {"embed": L.embed_specs(cfg), "encoder": stacked(enc),
+            "decoder": stacked(dec), "ln_enc": (None,), "ln_f": (None,)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (which must
@@ -166,6 +178,11 @@ def cache_shapes(cfg: ModelConfig, batch: int,
     self_kv = (cfg.num_layers, batch, max_len, hkv, hd)
     cross = (cfg.num_layers, batch, cfg.audio_frames, hkv, hd)
     return {"k": self_kv, "v": self_kv, "xk": cross, "xv": cross}
+
+
+def cache_pspecs(cfg: ModelConfig) -> Dict[str, Tuple]:
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -39,6 +39,7 @@ from ..configs.base import ModelConfig
 from . import layers as L
 from . import ssm as S
 from .remat import layer_slices, remat
+from .transformer import _map
 
 Params = Dict[str, Any]
 
@@ -72,6 +73,19 @@ def param_shapes(cfg: ModelConfig) -> Params:
     if cfg.shared_attn_every > 0:
         out["shared"] = {"ln1": (d,), "attn": L.attention_shapes(cfg),
                          "ln2": (d,), "mlp": L.mlp_shapes(cfg, cfg.d_ff)}
+    return out
+
+
+def param_pspecs(cfg: ModelConfig) -> Params:
+    """Logical-axis tuples of ``param_shapes``'s tree (``repro``'s
+    ``param_pspecs``)."""
+    layer = {"ln": (None,), "mamba": S.mamba_specs(cfg)}
+    out = {"embed": L.embed_specs(cfg),
+           "layers": _map(lambda sp: ("layers",) + tuple(sp), layer),
+           "ln_f": (None,)}
+    if cfg.shared_attn_every > 0:
+        out["shared"] = {"ln1": (None,), "attn": L.attention_specs(cfg),
+                         "ln2": (None,), "mlp": L.mlp_specs(cfg)}
     return out
 
 
@@ -121,6 +135,18 @@ def cache_shapes(cfg: ModelConfig, batch: int,
     if g:
         out["k"] = out["v"] = (g, batch, max_len, cfg.num_kv_heads,
                                cfg.resolved_head_dim)
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of the flat cache: ``repro``'s ``cache_pspecs`` with
+    ``state/h``, ``state/conv``, ``attn/k`` and ``attn/v`` as ``h``,
+    ``conv``, ``k`` and ``v``."""
+    out = {"h": ("layers", "batch", "heads", None, None)
+           if cfg.mamba_version == 2 else ("layers", "batch", "ff", None),
+           "conv": ("layers", "batch", None, "ff")}
+    if num_shared_sites(cfg):
+        out["k"] = out["v"] = (None, "batch", "kv_seq", "kv_heads", None)
     return out
 
 

@@ -6,7 +6,10 @@ and the encoder-decoder (``encdec``, whisper).
     m = Model(cfg)
     params = m.init(generator, device=...)      # random weights on device
     params = m.load(tree_of_numpy, device=...)  # repro's weights
+    aparams = m.abstract_params()               # meta tensors (dry run)
+    pspecs = m.param_pspecs()                   # logical-axis tuples
     cache = m.init_cache(batch, max_len, device=...)
+    acache = m.cache_shapes(batch, max_len)     # meta tensors (dry run)
     logits, cache = m.prefill(params, {"tokens": t}, cache)
     # encdec: {"tokens", "frames"}; vlm: {"tokens", "image_embeds"}
     logits, cache = m.decode_step(params, cache, tokens, index)
@@ -27,6 +30,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.backend import resolve_device, strict_fp32
 from . import convert, encdec, hybrid, transformer
+from . import layers as L
 
 Params = Dict[str, Any]
 
@@ -69,22 +73,31 @@ class Model:
         """``repro``'s parameter tree, as numpy, onto the device."""
         return convert.params_from_jax(tree, self.cfg, _on(device))
 
+    def abstract_params(self) -> Params:
+        """The parameter tree as ``meta`` tensors of its shapes and dtypes
+        (``repro``'s ``init_params(cfg, None, abstract=True)``): nothing
+        allocated, no generator drawn."""
+        cfg = self.cfg
+        mod = _module(cfg)
+        special = transformer.param_dtypes(cfg) if mod is transformer else {}
+        meta = torch.device("meta")
+
+        def walk(shapes, dtypes):
+            return {k: walk(v, dtypes.get(k, {})) if isinstance(v, dict)
+                    else torch.empty(v, dtype=dtypes.get(k, L.dt(cfg)),
+                                     device=meta)
+                    for k, v in shapes.items()}
+        return walk(mod.param_shapes(cfg), special)
+
     def param_pspecs(self) -> Params:
         """Logical-axis tuples of the parameter tree, as ``repro``'s
-        ``Model.param_pspecs`` (the transformer families: what
-        ``models.tp`` shards)."""
-        return self._transformer("param_pspecs").param_pspecs(self.cfg)
+        ``Model.param_pspecs``: what ``models.tp`` shards and the dry run
+        (``launch.dryrun``) fits to the mesh."""
+        return _module(self.cfg).param_pspecs(self.cfg)
 
     def cache_pspecs(self) -> Dict[str, Tuple]:
-        """Logical-axis tuples of the cache (the transformer families)."""
-        return self._transformer("cache_pspecs").cache_pspecs(self.cfg)
-
-    def _transformer(self, what: str):
-        if _module(self.cfg) is not transformer:
-            raise NotImplementedError(
-                f"{what}: the port names logical axes for the transformer "
-                f"families only, not family={self.cfg.family!r}")
-        return transformer
+        """Logical-axis tuples of the cache (``init_cache``'s tree)."""
+        return _module(self.cfg).cache_pspecs(self.cfg)
 
     # -- training ----------------------------------------------------------------
     def train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
@@ -121,6 +134,12 @@ class Model:
         the cross K/V of ``audio_frames`` positions."""
         return _module(self.cfg).init_cache(self.cfg, batch, max_len,
                                             _on(device))
+
+    def cache_shapes(self, batch: int, max_len: int):
+        """``init_cache``'s tree as ``meta`` tensors of its shapes and
+        dtypes (``repro``'s ``cache_shapes``): nothing allocated."""
+        return _module(self.cfg).init_cache(self.cfg, batch, max_len,
+                                            torch.device("meta"))
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache) -> Tuple[torch.Tensor, Any]:

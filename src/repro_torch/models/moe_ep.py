@@ -17,7 +17,10 @@ a ``launch.mesh.DeviceMesh``) in turn, single-controller:
     slabs for batched products, and the reverse all-to-all brings the
     outputs home;
   * every step is a torch op, so autograd differentiates the block (the
-    all-to-all's backward is the reverse all-to-all).
+    all-to-all's backward is the reverse all-to-all);
+  * each all-to-all charges an active cost counter (``launch.hlo_cost``)
+    with the bytes its receivers take in, summed over the shards, as
+    ``all-to-all`` (``repro``'s ``lax.all_to_all``).
 
 Expert ownership is contiguous: shard j owns experts j·e_loc ..
 (j+1)·e_loc (``flat_ids // e_loc``), as ``repro``'s code has it.  The ring
@@ -41,10 +44,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.backend import charge
 from ..sharding import specs as sh
 from . import layers as L
 
 Params = Dict[str, Any]
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def capacities(t_loc: int, cfg: ModelConfig, m_shards: int) -> Tuple[int, int]:
@@ -198,6 +205,8 @@ def moe_block_ep(params: Params, x: torch.Tensor, cfg: ModelConfig
         # the all-to-all: destination j receives block j of every source;
         # phase 2: each shard runs its experts on what it received
         outs = []
+        charge("moe_ep", {"collective": "all-to-all", "bytes": sum(
+            sum(_nbytes(t) for t in xs_) + _nbytes(e) for xs_, e in sent)})
         for j in range(m_shards):
             recv_x = torch.cat([sent[src][0][j].to(devs[j])
                                 for src in range(m_shards)])
@@ -209,6 +218,8 @@ def moe_block_ep(params: Params, x: torch.Tensor, cfg: ModelConfig
         # the reverse all-to-all, then phase 3: each shard adds its
         # tokens' k results in choice order
         row = []
+        charge("moe_ep", {"collective": "all-to-all", "bytes": sum(
+            _nbytes(t) for o in outs for t in o)})
         for j in range(m_shards):
             back = torch.cat([outs[dst][j].to(devs[j])
                               for dst in range(m_shards)])

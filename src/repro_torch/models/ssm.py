@@ -79,6 +79,20 @@ def mamba_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of ``mamba_shapes``'s leaves (``repro``'s
+    ``mamba_specs``)."""
+    if cfg.mamba_version == 1:
+        return {"in_proj": ("embed", "ff"), "conv_w": (None, "ff"),
+                "conv_b": ("ff",), "x_proj": ("ff", None),
+                "dt_proj": (None, "ff"), "dt_bias": ("ff",),
+                "A_log": ("ff", None), "D": ("ff",),
+                "out_proj": ("ff", "embed")}
+    return {"in_proj": ("embed", "ff"), "conv_w": (None, "ff"),
+            "conv_b": ("ff",), "dt_bias": ("heads",), "A_log": ("heads",),
+            "D": ("heads",), "norm_w": ("ff",), "out_proj": ("ff", "embed")}
+
+
 def mamba_params(cfg: ModelConfig, generator: torch.Generator,
                  device) -> Params:
     """One layer's weights with ``repro``'s ``mamba_params``

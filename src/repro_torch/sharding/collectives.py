@@ -19,6 +19,13 @@ shards of one card do).  Every step is a torch op, so autograd
 differentiates through the collectives.  ``repro``'s ``shard_map_compat``
 and ``_axis_size`` exist for jax's version differences and have no
 counterpart here.
+
+Each function charges an active cost counter (``launch.hlo_cost``) with
+what ``repro``'s compiled collective would show, summed over the peers:
+every round's sends as ``collective-permute`` bytes (``repro`` runs them
+as ``ppermute``), and ``edra_allreduce``'s reduction half as a
+``reduce-scatter`` of the padded input; the sends' own copies are hidden
+from the counter.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from typing import Any, Callable, List, Sequence
 import numpy as np
 import torch
 
+from ..kernels.backend import charged
+
 
 def _rounds(n: int) -> int:
     r = int(math.log2(n)) if n >= 1 else -1
@@ -36,11 +45,24 @@ def _rounds(n: int) -> int:
     return r
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def edra_allgather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """All-gather over the ring of peers via the EDRA tree: peer i's
     result is (n, *x.shape) on its entry, block j = peer j's tensor."""
     n = len(xs)
     rho = _rounds(n)
+    # round l: every peer sends its 2^l blocks
+    sent = sum(_nbytes(x) for x in xs) * ((1 << rho) - 1)
+    with charged("edra_allgather", {"collective": "collective-permute",
+                                    "bytes": sent}):
+        return _allgather(xs, n, rho)
+
+
+def _allgather(xs: Sequence[torch.Tensor], n: int,
+               rho: int) -> List[torch.Tensor]:
     bufs = [x[None] for x in xs]                    # blocks [i]
     for l in range(rho):
         m = 1 << l
@@ -64,13 +86,17 @@ def edra_broadcast(xs: Sequence[torch.Tensor],
     receives."""
     n = len(xs)
     rho = _rounds(n)
-    val = [x if (i - source) % n == 0 else torch.zeros_like(x)
-           for i, x in enumerate(xs)]
-    for l in range(rho):
-        m = 1 << l
-        for i in range(m):
-            src, dst = (source + i) % n, (source + i + m) % n
-            val[dst] = val[src].to(xs[dst].device)
+    # round l: 2^l peers send the reporter's tensor
+    with charged("edra_broadcast", {"collective": "collective-permute",
+                                    "bytes": _nbytes(xs[source])
+                                    * ((1 << rho) - 1)}):
+        val = [x if (i - source) % n == 0 else torch.zeros_like(x)
+               for i, x in enumerate(xs)]
+        for l in range(rho):
+            m = 1 << l
+            for i in range(m):
+                src, dst = (source + i) % n, (source + i + m) % n
+                val[dst] = val[src].to(xs[dst].device)
     return val
 
 
@@ -83,15 +109,19 @@ def edra_allreduce(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     _rounds(n)
     shape = xs[0].shape
     pad = (-xs[0].numel()) % n
-    flat = [torch.nn.functional.pad(x.reshape(-1), (0, pad)).reshape(n, -1)
-            for x in xs]
-    shards = []
-    for p in range(n):
-        dev = xs[p].device
-        acc = flat[0][p].to(dev)
-        for q in range(1, n):
-            acc = acc + flat[q][p].to(dev)
-        shards.append(acc)
+    # the reduce-scatter's result: one 1/n piece of the padded input a peer
+    with charged("edra_allreduce", {"collective": "reduce-scatter",
+                                    "bytes": (xs[0].numel() + pad)
+                                    * xs[0].element_size()}):
+        flat = [torch.nn.functional.pad(x.reshape(-1), (0, pad))
+                .reshape(n, -1) for x in xs]
+        shards = []
+        for p in range(n):
+            dev = xs[p].device
+            acc = flat[0][p].to(dev)
+            for q in range(1, n):
+                acc = acc + flat[q][p].to(dev)
+            shards.append(acc)
     full = edra_allgather(shards)
     return [f.reshape(-1)[:f.numel() - pad].reshape(shape) for f in full]
 

@@ -194,5 +194,12 @@ def tp_context(axis: str, index: int, reduce: Callable):
 def psum_tp(x):
     """Sum ``x`` over the TP group inside a TP context (the row-parallel
     combine: each shard holds a partial sum over its slice of the
-    contracted dimension); the identity outside one."""
-    return x if _TP.reduce is None else _TP.reduce(_TP.index, x)
+    contracted dimension); the identity outside one.  Inside one it
+    charges an active cost counter (``launch.hlo_cost``) with an
+    ``all-reduce`` of ``x``'s bytes, as ``repro``'s ``psum`` shows."""
+    if _TP.reduce is None:
+        return x
+    from ..kernels.backend import charged
+    with charged("psum_tp", {"collective": "all-reduce",
+                             "bytes": x.numel() * x.element_size()}):
+        return _TP.reduce(_TP.index, x)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import quickstart
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.churn import ChurnConfig
 from repro_torch.core.ringstate import RingState
 from repro_torch.core.sim import simulate_churn
@@ -503,8 +504,15 @@ def test_decode_attention_length_zero_on_the_tensor_cores(cuda):
 
 @pytest.mark.cuda
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    """Nor the meta routes: a CUDA tensor launches its kernel."""
     def refuse(*a, **kw):
-        raise AssertionError("a CUDA tensor reached a plain version")
+        raise AssertionError("a CUDA tensor reached a plain version or a "
+                             "meta route")
+    monkeypatch.setattr(da_ops, "_meta_output", refuse)
+    monkeypatch.setattr(fa_ops, "_meta_forward", refuse)
+    monkeypatch.setattr(fa_ops, "_meta_backward", refuse)
+    monkeypatch.setattr(ssm_ops, "_meta_forward", refuse)
+    monkeypatch.setattr(ssm_ops, "_meta_backward", refuse)
     monkeypatch.setattr(rl_ops, "ring_lookup_ref", refuse)
     monkeypatch.setattr(rl_ops, "ring_lookup64_ref", refuse)
     monkeypatch.setattr(rl_ops, "ring_lookup_bucketed_ref", refuse)
@@ -543,6 +551,68 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     qk = torch.randn((1, 8, 2, 64), device=cuda).requires_grad_()
     a = fa_ops.FlashAttentionFn.apply(qk, qk, qk, True)
     torch.autograd.grad(y.sum() + a.sum(), leaves + [qk])
+
+
+def _launch_step(model, mode: str, device):
+    """A ``smoke()`` step of ``mode`` (B 2, S 32) on ``device``: the step
+    and its arguments (random on the card, empty on ``meta``)."""
+    from repro_torch.launch.inputs import input_specs
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg, meta = model.cfg, device.type == "meta"
+    params = model.abstract_params() if meta else model.init(
+        torch.Generator(device=device).manual_seed(0), device=device)
+    gen = None if meta else torch.Generator(device=device).manual_seed(1)
+
+    def draw(shape, dtype):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=device)
+        if dtype == torch.int32:
+            return torch.randint(0, cfg.vocab, shape, generator=gen,
+                                 device=device, dtype=dtype)
+        return (torch.randn(shape, generator=gen, device=device)
+                * 0.02).to(dtype)
+    name = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k"}[mode]
+    batch = {k: draw(s, d) for k, (s, d) in input_specs(
+        cfg, ShapeConfig(name, 32, 2, mode)).items()}
+    if mode == "train":
+        opt = adamw.OptConfig()
+        return make_train_step(model, TrainConfig(opt=opt)), (
+            params, adamw.init_state(params, opt), batch)
+    cache = model.init_cache(2, 64, device=device)
+    if mode == "prefill":
+        return model.prefill, (params, batch, cache)
+    index = torch.full((2,), 40, dtype=torch.int32, device=device) \
+        if model.supports_per_slot_decode else 40
+    return model.decode_step, (params, cache, batch["tokens"], index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-235b-a22b",
+                                  "falcon-mamba-7b", "zamba2-7b",
+                                  "whisper-small", "internvl2-2b"])
+def test_meta_and_the_card_count_a_step_alike(cuda, arch, mode):
+    """One ``smoke()`` step of each family (one attention head of hd 64,
+    which K5b takes) counted by ``launch.hlo_cost.CostCounter`` on the
+    card, through the kernels, and on ``meta``, through their meta
+    routes: the same matmul FLOPs, HBM bytes and kernel charges."""
+    from repro_torch.launch.hlo_cost import CostCounter
+    over = {} if arch == "falcon-mamba-7b" else dict(
+        num_heads=1, num_kv_heads=1, head_dim=64)
+    model = Model(get_smoke_config(arch).with_overrides(**over))
+    got = {}
+    for device in (cuda, torch.device("meta")):
+        fn, args = _launch_step(model, mode, device)
+        with CostCounter(args) as counter:
+            fn(*args)
+        got[device.type] = counter.result()
+    for key in ("matmul_flops", "hbm_bytes", "kernels", "aten"):
+        assert got["cuda"][key] == got["meta"][key], key
+    # Mamba-1's decode step is plain torch: no kernel to charge
+    assert bool(got["cuda"]["kernels"]) != (arch == "falcon-mamba-7b"
+                                            and mode == "decode")
 
 
 # K5 tolerances: repro's own (tests/test_kernels.py), kernel and plain
@@ -1391,6 +1461,9 @@ def test_ring_lookup_refuses_non_cuda_tensors_and_empty_tables():
 
 
 def test_launchers_refuse_non_cuda_tensors():
+    """The launchers take CUDA tensors only.  K3's, K5's and K6's public
+    wrappers give ``meta`` tensors their meta route (empty outputs of the
+    right shapes and dtypes, the dry run's), and refuse them no more."""
     meta = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         rl_ops.ring_lookup64(meta, meta, meta, meta, meta[:1])
@@ -1402,8 +1475,10 @@ def test_launchers_refuse_non_cuda_tensors():
             meta[:1])
     q = torch.empty((1, 2, 16), device="meta")
     kv = torch.empty((1, 8, 1, 16), device="meta")
+    out = da_ops.decode_attention(q, kv, kv, meta[:1])
+    assert (out.shape, out.device.type) == ((1, 2, 16), "meta")
     with pytest.raises(ValueError, match="CUDA"):
-        da_ops.decode_attention(q, kv, kv, meta[:1])
+        da_kernel.decode_attention_cuda(q, kv, kv, meta[:1])
     t0 = torch.empty(4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         et_ops.edra_tree(meta, meta, meta, t0, meta, levels=4, theta=1.0,
@@ -1412,8 +1487,10 @@ def test_launchers_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         et_kernel.edra_tree_cuda(cpu, cpu + 5, cpu, cpu.float(), cpu,
                                  levels=4, theta=1.0, delta_avg=0.01)
+    out = fa_ops.flash_attention(q[:, None], kv, kv, causal=True)
+    assert (out.shape, out.device.type) == ((1, 1, 2, 16), "meta")
     with pytest.raises(ValueError, match="CUDA"):
-        fa_ops.flash_attention(q[:, None], kv, kv, causal=True)
+        fa_kernel.flash_attention_cuda(q[:, None], kv, kv, causal=True)
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention_cuda(torch.zeros((1, 1, 2, 16)),
                                        torch.zeros((1, 8, 1, 16)),
@@ -1422,8 +1499,11 @@ def test_launchers_refuse_non_cuda_tensors():
     x, bc = torch.empty((1, 8, 4), device="meta"), \
         torch.empty((1, 8, 2), device="meta")
     a, d = torch.empty((4, 2), device="meta"), torch.empty(4, device="meta")
+    y, h_last = ssm_ops.ssm_scan(x, x, bc, bc, a, d)
+    assert (y.shape, h_last.shape, y.device.type) == ((1, 8, 4), (1, 4, 2),
+                                                      "meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ssm_ops.ssm_scan(x, x, bc, bc, a, d)
+        ssm_kernel.ssm_scan_cuda(x, x, bc, bc, a, d)
     with pytest.raises(ValueError, match="CUDA"):
         ssm_kernel.ssm_scan_cuda(*(torch.zeros(t.shape)
                                    for t in (x, x, bc, bc, a, d)))

@@ -44,7 +44,7 @@ print(len(names))
 """
 
 # the modules of the tensor-parallel and dht_cluster slice, of the
-# training slice, and of the tooling slice
+# training slice, of the tooling slice, and of the launch group
 NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.launch.mesh", "repro_torch.models.tp",
                "repro_torch.runtime.elastic", "repro_torch.sharding.specs",
@@ -58,7 +58,9 @@ NEW_MODULES = ("repro_torch.dht.udp_node", "repro_torch.dht_cluster",
                "repro_torch.kernels.autotune", "repro_torch.analysis.lint",
                "repro_torch.analysis.baseline",
                "repro_torch.analysis.__main__",
-               "repro_torch.analysis.sanitize")
+               "repro_torch.analysis.sanitize",
+               "repro_torch.launch.presets", "repro_torch.launch.dryrun",
+               "repro_torch.launch.hlo_cost")
 
 
 def _env(**extra):

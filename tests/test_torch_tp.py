@@ -554,16 +554,17 @@ def test_a_device_group_names_its_pool_ids():
                                   "deepseek-v2-236b", "internvl2-2b",
                                   "falcon-mamba-7b", "whisper-small"])
 def test_param_pspecs_match_repros_for_the_transformer_families(arch):
-    """The logical-axis trees of the transformer families equal repro's,
-    int8 experts included; the other families raise (the port names no
-    axes for them: tensor parallelism refuses them)."""
+    """The logical-axis trees of every family, the transformer families
+    and the SSM, hybrid and encoder-decoder ones alike, equal repro's,
+    int8 experts included (the SSM family's flat cache names repro's
+    ``state/h``, ``state/conv``, ``attn/k`` and ``attn/v`` as ``h``,
+    ``conv``, ``k`` and ``v``)."""
     m, jm = Model(get_smoke_config(arch)), JModel(j_smoke(arch))
-    if get_smoke_config(arch).family not in ("dense", "moe", "vlm"):
-        with pytest.raises(NotImplementedError, match="transformer"):
-            m.param_pspecs()
-        return
     assert m.param_pspecs() == jm.param_pspecs()
-    assert m.cache_pspecs() == jm.cache_pspecs()
+    want = jm.cache_pspecs()
+    if get_smoke_config(arch).family in ("ssm", "hybrid"):
+        want = {**want["state"], **want.get("attn", {})}
+    assert m.cache_pspecs() == want
     q = "int8" if get_smoke_config(arch).moe_experts else ""
     assert Model(get_smoke_config(arch).with_overrides(
         moe_weight_dtype=q)).param_pspecs() == JModel(j_smoke(arch)
